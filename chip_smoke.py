@@ -1,0 +1,411 @@
+"""End-to-end smoke test of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Needs a CUDA device (exits non-zero without printing a result when
+``torch.cuda.is_available()`` is false) and the CUDA toolkit (the kernels
+are compiled from ``src/repro_torch/kernels/csrc`` at first use). Phases,
+each failing the script on any error:
+
+1. device: the card's name and power limit, and the kernels' build time;
+2. kernels: each hand-written kernel against its plain PyTorch version
+   on the card, at the shapes of the main path and at edge cases, exactly;
+   their times beside the plain version's, the byte bound and, where one
+   PyTorch call computes the same function, that call;
+3. path: the hybrid Pipe (``repro_torch.color``) on kron_g500-logn21_s at
+   scale 32 (2**21 nodes, ell-tail, hubs) and europe_osm_s at scale 127
+   (50.8M nodes, pure-ell), two-phase and fused, with the kernel launch
+   counts of each run and a verified coloring; then the same Pipe replayed
+   over the step functions with CUDA's sync debug mode set to "error"
+   everywhere but the per-iteration count read;
+4. card vs CPU: kron at scale 1 colored on the card and on the CPU gives
+   identical results.
+
+The line before the last is the kernels' JSON summary; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "src"))
+
+import repro_torch  # noqa: E402
+from repro_torch.algos.base import init_ipgc_state  # noqa: E402
+from repro_torch.core import ipgc  # noqa: E402
+from repro_torch.core.engine import adaptive_window  # noqa: E402
+from repro_torch.core.policy import make_policy  # noqa: E402
+from repro_torch.core.worklist import (bucket_capacities,  # noqa: E402
+                                       pick_bucket, resize_items)
+from repro_torch.exec import default_session  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels.compact import compact_plain  # noqa: E402
+from repro_torch.kernels.conflict import conflict_plain  # noqa: E402
+from repro_torch.kernels.fused_compact import fused_compact_plain  # noqa: E402
+from repro_torch.kernels.mex_window import mex_window_plain  # noqa: E402
+
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the non-tensor-core
+#: 32-bit vector rate (67 TFLOP/s) as the rate of the kernels' integer work
+HBM_BYTES_PER_S = 3.35e12
+VECTOR_OPS_PER_S = 67e12
+
+KRON = dict(name="kron_g500-logn21_s", scale=32, layout="ell-tail",
+            ell_cap=128)
+ROAD = dict(name="europe_osm_s", scale=127, layout="auto")
+SMALL = dict(name="kron_g500-logn21_s", scale=1, layout="ell-tail",
+             ell_cap=128)
+
+SOURCES = {
+    "mex_window": ("src/repro_torch/kernels/csrc/mex_window.cu",
+                   "src/repro/kernels/mex_window.py:66"),
+    "conflict": ("src/repro_torch/kernels/csrc/conflict.cu",
+                 "src/repro/kernels/conflict.py:49"),
+    "compact": ("src/repro_torch/kernels/csrc/compact.cu",
+                "src/repro/kernels/compact.py:66"),
+    "fused_compact": ("src/repro_torch/kernels/csrc/fused_compact.cu",
+                      "src/repro/kernels/fused_compact.py:191"),
+}
+TWO_PHASE = ("mex_window", "conflict", "compact")
+
+
+def log(**fields) -> None:
+    print(json.dumps(fields), flush=True)
+
+
+# --- timing and bounds ---------------------------------------------------------
+
+def cuda_ms(fn, reps: int = 10) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls (CUDA
+    events, after one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops_: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops_ / VECTOR_OPS_PER_S
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
+
+
+def assert_equal(got, want, what: str) -> int:
+    """Exact equality of every output; returns the max abs difference (0)."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0
+    for g, w in zip(got, want, strict=True):
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"{what}: kernel disagrees with its plain "
+                                 "version")
+        if g.numel():
+            err = max(err, int((g.long() - w.long()).abs().max()))
+    return err
+
+
+# --- phase 1 -------------------------------------------------------------------
+
+def device_phase() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    card = smi.strip().splitlines()[0]
+    print(card, flush=True)
+    out, seconds = _build.build_all()
+    log(phase="build", seconds=seconds, directory=str(out))
+    print((out / "build.log").read_text() if (out / "build.log").exists()
+          else "(libraries already built)", flush=True)
+    return card
+
+
+# --- phase 2 -------------------------------------------------------------------
+
+def edge_cases(dev) -> None:
+    """Small and ragged shapes, empty/full masks, hub on/off, truncating
+    and padding capacities: every kernel equals its plain version."""
+    rng = np.random.default_rng(7)
+
+    def t(a):
+        return None if a is None else torch.from_numpy(np.asarray(a)).to(dev)
+
+    for r in (1, 7, 257, 3000):
+        for k in (1, 8, 40, 128):
+            for w in (32, 128, 256):
+                nc = rng.integers(-2, 300, size=(r, k)).astype(np.int32)
+                base = (rng.integers(0, 4, size=r) * w).astype(np.int32)
+                extra = rng.random((r, w)) < 0.25
+                for e in (None, extra):
+                    assert_equal(ops.mex_window(t(nc), t(base), t(e), w),
+                                 mex_window_plain(t(nc), t(base), t(e), w),
+                                 f"mex_window r={r} k={k} w={w}")
+            npr = rng.integers(-1, 100, size=(r, k)).astype(np.int32)
+            nid = rng.integers(0, r + 1, size=(r, k)).astype(np.int32)
+            cu = rng.integers(-2, 300, size=r).astype(np.int32)
+            pu = rng.integers(0, 100, size=r).astype(np.int32)
+            ids = np.arange(r, dtype=np.int32)
+            args = [t(a) for a in (nc, npr, nid, cu, pu, ids)]
+            assert_equal(ops.conflict(*args), conflict_plain(*args),
+                         f"conflict r={r} k={k}")
+            for hub in (False, True):
+                for act_p in (0.0, 0.8, 1.0):
+                    act = rng.random(r) < act_p
+                    case = [t(a) for a in (
+                        nc, npr, nid, base, cu, pu, ids, act,
+                        act & (cu >= 0), extra if hub else None,
+                        (rng.random(r) < 0.1) & act if hub else None)]
+                    for cap in (r, max(r // 3, 1), r + 5):
+                        assert_equal(
+                            ops.fused_compact(*case, w, capacity=cap,
+                                              n_sentinel=r),
+                            fused_compact_plain(*case, w, capacity=cap,
+                                                n_sentinel=r),
+                            f"fused_compact r={r} k={k} hub={hub} cap={cap}")
+    for n in (1, 5, 2047, 2048, 2049, 100_003):
+        for density in (0.0, 0.3, 1.0):
+            mask = t(rng.random(n) < density)
+            values = t(rng.integers(0, 10**6, size=n).astype(np.int32))
+            for cap in (n, max(n // 2, 1), n + 7):
+                assert_equal(ops.compact(mask, cap, n),
+                             compact_plain(mask, cap, n),
+                             f"compact n={n} cap={cap}")
+            assert_equal(ops.compact(mask, n, n, values),
+                         compact_plain(mask, n, n, values),
+                         f"compact values n={n}")
+    log(phase="kernels.edge_cases", equal=True)
+
+
+def main_path_operands(ig, window: int):
+    """The operands the dense steps hand the kernels, taken from the state
+    two fused dense iterations into a run on ``ig``."""
+    colors, base, wl = init_ipgc_state(ig)
+    for _ in range(2):
+        colors, base, wl = ipgc.fused_dense_step(ig, colors, base, wl,
+                                                 window=window)
+    n = ig.n_nodes
+    hubs = ig.n_hub > 0
+    row_ids = torch.arange(n, dtype=torch.int32, device=ig.device)
+    nc = colors[ig.ell_idx]
+    npr = ig.priority[ig.ell_idx]
+    cu = colors[:n]
+    pending = wl.mask & (cu >= 0)
+    extra = hub_lose = None
+    if hubs:
+        extra = ipgc._hub_forbidden(ig, colors, base, window)[ig.hub_slot]
+        pending_full = torch.cat([pending, pending.new_zeros(1)])
+        hub_lose = ipgc._hub_lose(ig, colors, pending_full)[ig.hub_slot]
+    return dict(nc=nc, npr=npr, ids=row_ids, cu=cu, pu=ig.priority[:n],
+                base=base, active=wl.mask, pending=pending, extra=extra,
+                hub_lose=hub_lose, capacity=wl.capacity, n=n,
+                window=window)
+
+
+def kernel_phase(ig, window: int, reps: int = 10) -> dict:
+    """Each kernel at the kron main path's dense-step shapes: equality with
+    the plain version, then kernel / plain / library times and the bound."""
+    o = main_path_operands(ig, window)
+    r, k = o["nc"].shape
+    w = window
+    colored = o["cu"] >= 0
+    same = (o["nc"] == o["cu"][:, None]) & colored[:, None]
+    n_colored = int(colored.sum())
+    n_same = int(same.sum())
+    work = o["active"] | o["pending"]
+    n_work = int(work.sum())
+    n_same_pend = int((same & (o["pending"] & colored)[:, None]).sum())
+    mask = o["active"]
+    rows = {}
+
+    def entry(name, kernel, plain, nbytes, ops_, library=None):
+        err = assert_equal(kernel(), plain(), f"{name} at main-path shapes")
+        t_bound, by = bound(nbytes, ops_)
+        ms = cuda_ms(kernel, reps)
+        rows[name] = dict(
+            name=name, route="cuda", source=SOURCES[name][0],
+            replaces=SOURCES[name][1], launches=0, max_abs_err=err,
+            equal=True, ms=ms, kernel_ms=ms, plain_ms=cuda_ms(plain, 3),
+            bound_ms=t_bound * 1e3, bound_by=by,
+            library_ms=None if library is None else cuda_ms(library, reps),
+            shape=dict(rows=r, k=k, window=w, hubs=o["extra"] is not None))
+
+    entry("mex_window",
+          lambda: ops.mex_window(o["nc"], o["base"], o["extra"], w),
+          lambda: mex_window_plain(o["nc"], o["base"], o["extra"], w),
+          nbytes=r * k * 4 + r * 4 + (0 if o["extra"] is None else r * w)
+          + r * 4,
+          ops_=r * k * 4)
+    entry("conflict",
+          lambda: ops.conflict(o["nc"], o["npr"], ig.ell_idx, o["cu"],
+                               o["pu"], o["ids"]),
+          lambda: conflict_plain(o["nc"], o["npr"], ig.ell_idx, o["cu"],
+                                 o["pu"], o["ids"]),
+          nbytes=r * 12 + r + n_colored * k * 4 + n_same * 8,
+          ops_=n_colored * k + n_same * 4)
+    entry("compact",
+          lambda: ops.compact(mask, o["capacity"], o["n"]),
+          lambda: compact_plain(mask, o["capacity"], o["n"]),
+          nbytes=r + o["capacity"] * 4 + 4, ops_=r,
+          library=lambda: torch.nonzero(mask))
+    fused_args = (o["nc"], o["npr"], ig.ell_idx, o["base"], o["cu"],
+                  o["pu"], o["ids"], o["active"], o["pending"], o["extra"],
+                  o["hub_lose"], w)
+    fused_kw = dict(capacity=o["capacity"], n_sentinel=o["n"])
+    entry("fused_compact",
+          lambda: ops.fused_compact(*fused_args, **fused_kw),
+          lambda: fused_compact_plain(*fused_args, **fused_kw),
+          nbytes=r * 18 + r * 9 + o["capacity"] * 4 + n_work * k * 4
+          + n_same_pend * 8 + (0 if o["extra"] is None else n_work * w + r),
+          ops_=n_work * k * 4)
+    del o, fused_args
+    log(phase="kernels.main_path", rows=list(rows.values()))
+    return rows
+
+
+# --- phase 3 -------------------------------------------------------------------
+
+def build_graph(spec: dict):
+    t0 = time.perf_counter()
+    g = repro_torch.get_dataset(spec["name"], scale=spec["scale"],
+                                layout=spec["layout"],
+                                ell_cap=spec.get("ell_cap"))
+    return g, time.perf_counter() - t0
+
+
+def replay_sync_free(ig, window: int, fused: bool, max_iter: int = 10_000):
+    """The host-loop Pipe over the public step functions, with CUDA's sync
+    debug mode at "error" around every step: a step that synchronises with
+    the host raises. Only the per-iteration count read runs outside it."""
+    n = ig.n_nodes
+    pol = make_policy("hybrid")
+    caps = bucket_capacities(n, ratio=2)
+    dense, sparse = ipgc.step_fns(fused)
+    colors, base, wl = init_ipgc_state(ig)
+    torch.cuda.synchronize()
+    count, it, trace = n, 0, []
+    while count > 0 and it < max_iter:
+        use_dense = bool(pol(count, n))
+        if not use_dense and wl.capacity > pick_bucket(caps, count):
+            wl = resize_items(wl, pick_bucket(caps, count), n)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            colors, base, wl = (dense if use_dense else sparse)(
+                ig, colors, base, wl, window=window)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        count = int(wl.count)
+        trace.append("D" if use_dense else "S")
+        it += 1
+    return colors[:n].cpu().numpy(), it, "".join(trace)
+
+
+def path_phase(g, build_s: float) -> dict:
+    """Both step families through ``repro_torch.color`` on ``g``; returns
+    the kernel launches per family."""
+    launches = {}
+    replay_ig, window = repro_torch.prepare(g), adaptive_window(g)
+    for fused in (False, True):
+        torch.cuda.synchronize()
+        _build.KERNEL_LAUNCHES.reset()
+        with ipgc.LAUNCH_COUNTS.scope() as passes:
+            t0 = time.perf_counter()
+            r = repro_torch.color(g, fused=fused)
+            wall = time.perf_counter() - t0
+            pass_counts = passes.as_dict()
+        counts = _build.KERNEL_LAUNCHES.as_dict()
+        need = ("fused_compact",) if fused else TWO_PHASE
+        missing = [k for k in need if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"{g.name} fused={fused}: kernels "
+                                 f"{missing} never launched")
+        stats = repro_torch.verify_coloring(g, r.colors,
+                                            context=f"fused={fused}")
+        launches[fused] = counts
+        log(phase="path", graph=g.name, nodes=g.n_nodes, edges=g.n_edges,
+            layout=g.layout.kind, ell_width=g.ell_width,
+            build_seconds=build_s, fused=fused, iterations=r.iterations,
+            n_colors=r.n_colors, mode_trace=r.mode_trace,
+            color_seconds=r.total_seconds, call_seconds=wall,
+            kernel_launches=counts, logical_passes=pass_counts,
+            verify=stats)
+        colors, iters, trace = replay_sync_free(replay_ig, window, fused)
+        if not (np.array_equal(colors, r.colors) and iters == r.iterations
+                and trace == r.mode_trace):
+            raise AssertionError(f"{g.name} fused={fused}: the sync-checked "
+                                 "replay differs from color()")
+        log(phase="path.sync_free_replay", graph=g.name, fused=fused,
+            iterations=iters, identical=True)
+    return launches
+
+
+# --- phase 4 -------------------------------------------------------------------
+
+def card_vs_cpu_phase() -> None:
+    g, _ = build_graph(SMALL)
+    for fused in (False, True):
+        a = repro_torch.color(g, fused=fused)
+        b = repro_torch.color(g, fused=fused, device="cpu")
+        same = (np.array_equal(a.colors, b.colors)
+                and (a.n_colors, a.iterations, a.mode_trace, a.counts)
+                == (b.n_colors, b.iterations, b.mode_trace, b.counts))
+        if not same:
+            raise AssertionError(f"card and CPU colorings differ "
+                                 f"(fused={fused})")
+        log(phase="card_vs_cpu", graph=g.name, nodes=g.n_nodes, fused=fused,
+            iterations=a.iterations, n_colors=a.n_colors, identical=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    card = device_phase()
+    dev = torch.device("cuda")
+
+    edge_cases(dev)
+    kron, kron_s = build_graph(KRON)
+    kron_ig = repro_torch.prepare(kron)
+    rows = kernel_phase(kron_ig, adaptive_window(kron))
+    del kron_ig
+    torch.cuda.empty_cache()
+
+    totals = dict.fromkeys(SOURCES, 0)
+    for g, build_s in ((kron, kron_s), build_graph(ROAD)):
+        for counts in path_phase(g, build_s).values():
+            for name, c in counts.items():
+                totals[name] += c
+        default_session().cache.clear()
+        torch.cuda.empty_cache()
+    if any(c == 0 for c in totals.values()):
+        raise AssertionError(f"a kernel never launched on the path: {totals}")
+
+    card_vs_cpu_phase()
+    for name, row in rows.items():
+        row["launches"] = totals[name]
+    log(phase="done", seconds=time.perf_counter() - t_start,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    print(card, flush=True)
+    print(json.dumps({"kernels": list(rows.values())}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

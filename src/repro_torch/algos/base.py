@@ -1,0 +1,106 @@
+"""The ``Algorithm`` protocol and registry (``repro/algos/base.py``).
+
+The step contract the Pipe drives (shared with the IPGC steps):
+
+    step(ig, colors, aux, wl, *, window, force_hub) -> (colors, aux, wl)
+
+  * ``ig``     — the prepared device graph (``core.ipgc.IPGCGraph``).
+  * ``colors`` — int32[N+1] color vector (slot N = PAD sentinel).
+  * ``aux``    — algorithm-owned state threaded opaquely by the engine
+                 (IPGC: int32[N] window bases).
+  * ``wl``     — the dual-representation persistent ``Worklist``; every
+                 step (dense AND sparse) re-emits both representations so
+                 mode switches stay free — the paper's invariant.
+
+Registry: algorithms register under a unique name; ``get_algorithm``
+accepts a name or an ``Algorithm`` instance (passthrough). Only ``ipgc``
+is ported so far.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import ipgc
+from repro_torch.core.worklist import full_worklist
+from repro_torch.graphs.csr import Graph
+
+
+@dataclasses.dataclass(frozen=True)
+class Algorithm:
+    """Base protocol; concrete algorithms subclass and override."""
+
+    name: str = "abstract"
+    #: tie-break priority fed to ``prepare`` when the caller passes None
+    default_priority: str = "hash"
+
+    def prepare(self, g: Graph, *, priority: "str | None" = None, plan=None,
+                device=None) -> ipgc.IPGCGraph:
+        return ipgc.prepare(g, priority=priority or self.default_priority,
+                            plan=plan, device=device)
+
+    def init_state(self, ig: ipgc.IPGCGraph):
+        """(colors, aux, wl) initial engine state."""
+        raise NotImplementedError
+
+    def step_fns(self, fused: bool):
+        """(dense, sparse) step pair for the host-loop Pipe."""
+        raise NotImplementedError
+
+    def resolve_fused(self, fused: "bool | None", *, default: bool) -> bool:
+        """Map the caller's ``fused`` request (None = engine default) to
+        the family this algorithm runs."""
+        return default if fused is None else fused
+
+    def finalize(self, colors: np.ndarray) -> tuple[np.ndarray, int]:
+        """(final colors, n_colors): the IPGC contract, max + 1."""
+        n_colors = int(colors.max()) + 1 if colors.size else 0
+        return colors, n_colors
+
+
+def _compact_palette(colors: np.ndarray) -> tuple[np.ndarray, int]:
+    """Remap the used colors to a dense 0..k-1 palette (validity-preserving
+    relabeling; uncolored slots, if any, stay negative) — the finalize of
+    palette-gapped algorithms."""
+    used = np.unique(colors[colors >= 0])
+    out = colors.copy()
+    if used.size:
+        out[colors >= 0] = np.searchsorted(used, colors[colors >= 0])
+    return out, int(used.size)
+
+
+def init_ipgc_state(ig: ipgc.IPGCGraph):
+    """The IPGC-family state triple: sentinel-slot colors, per-node window
+    bases, full worklist."""
+    n = ig.n_nodes
+    return (ipgc.init_colors(n, ig.device),
+            torch.zeros(n, dtype=torch.int32, device=ig.device),
+            full_worklist(n, ig.device))
+
+
+_REGISTRY: dict[str, Algorithm] = {}
+
+
+def register(algo: Algorithm) -> Algorithm:
+    if not algo.name or algo.name == "abstract":
+        raise ValueError("algorithm must carry a concrete name")
+    _REGISTRY[algo.name] = algo
+    return algo
+
+
+def algorithm_names() -> list[str]:
+    return list(_REGISTRY)
+
+
+def get_algorithm(algo: "str | Algorithm") -> Algorithm:
+    if isinstance(algo, Algorithm):
+        return algo
+    try:
+        return _REGISTRY[algo]
+    except KeyError:
+        raise ValueError(
+            f"unknown algorithm {algo!r}; registered: "
+            f"{sorted(_REGISTRY)} (jpl and spec-greedy are not ported "
+            "yet: ROADMAP Queue A item 4)") from None

@@ -1,0 +1,9 @@
+"""The paper's primary contribution: hybrid (topology+data-driven) worklist
+scheduling with a persistent worklist, applied to IPGC (``repro/core``)."""
+from repro_torch.core.engine import ColoringResult, color  # noqa: F401
+from repro_torch.core.worklist import (Worklist, bucket_capacities,  # noqa: F401
+                                       full_worklist)
+from repro_torch.core.verify import (InvalidColoringError,  # noqa: F401
+                                     coloring_stats, verify_coloring)
+from repro_torch.core import ipgc  # noqa: F401
+from repro_torch.core.ipgc import prepare  # noqa: F401

@@ -1,0 +1,88 @@
+"""Hybrid switching policies (``repro/core/policy.py``, host regime).
+
+The paper: pick topology-driven when the worklist size is > H * |V| (H
+tuned empirically, ~0.6 on a Quadro P5000). The paper's fixed-H policy,
+the two degenerate policies (the baselines), and an auto-tuned policy that
+estimates the crossover from timed iterations.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable
+
+# A policy maps (count, n_nodes) -> True for dense (topology) mode.
+Policy = Callable[[int, int], bool]
+
+
+@dataclasses.dataclass(frozen=True)
+class FixedH:
+    """The paper's policy: dense while count > h * n."""
+
+    h: float = 0.6
+
+    def __call__(self, count: int, n: int) -> bool:
+        return count > self.h * n
+
+
+@dataclasses.dataclass(frozen=True)
+class AlwaysDense:
+    def __call__(self, count: int, n: int) -> bool:
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class AlwaysSparse:
+    def __call__(self, count: int, n: int) -> bool:
+        return False
+
+
+@dataclasses.dataclass
+class AutoTuned:
+    """Estimate H from per-mode cost models fitted online.
+
+    Model: dense iteration cost ~ a_d (constant in count); sparse
+    iteration cost ~ b_s * count. Once both modes have a timed sample,
+    go sparse as soon as the predicted sparse cost undercuts the dense
+    cost; until then follow the paper's fixed-H prior.
+    """
+
+    prior_h: float = 0.6
+    dense_cost: "float | None" = None
+    sparse_unit: "float | None" = None  # seconds per worklist slot
+
+    def __call__(self, count: int, n: int) -> bool:
+        if self.dense_cost is None or self.sparse_unit is None:
+            return count > self.prior_h * n
+        return self.sparse_unit * count > self.dense_cost
+
+    def observe(self, dense: bool, count: int, n: int,
+                seconds: float) -> None:
+        if dense:
+            self.dense_cost = seconds if self.dense_cost is None else (
+                0.7 * self.dense_cost + 0.3 * seconds)
+        else:
+            unit = seconds / max(count, 1)
+            self.sparse_unit = unit if self.sparse_unit is None else (
+                0.7 * self.sparse_unit + 0.3 * unit)
+
+
+def make_policy(mode: str, h: float = 0.6) -> Policy:
+    if mode == "hybrid":
+        return FixedH(h)
+    if mode == "hybrid-auto":
+        return AutoTuned(prior_h=h)
+    if mode in ("topology", "dense"):
+        return AlwaysDense()
+    if mode in ("data", "sparse", "plain"):
+        return AlwaysSparse()
+    raise ValueError(f"unknown mode {mode!r}")
+
+
+class Timer:
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.seconds = time.perf_counter() - self.t0

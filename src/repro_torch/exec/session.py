@@ -1,0 +1,173 @@
+"""Execution sessions (``repro/exec/session.py``, host regime).
+
+A ``Session`` owns the device it runs on and a keyed cache of prepared
+graphs: ``Session.run(spec, g)`` prepares ``g`` once per (graph, spec)
+pair and drives the host-loop Pipe. The loop reads back one scalar per
+iteration, the worklist ``count`` — exactly what IrGL's Pipe uses for its
+worklist-size check — picks dense or sparse from it (the paper's H
+policy) and a capacity bucket, and dispatches the step. The steps read
+nothing else back, so that read is the iteration's only synchronisation.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+
+
+from repro_torch.core import ipgc
+from repro_torch.core.engine import (ColoringResult, adaptive_window,
+                                     resolve_plan)
+from repro_torch.core.policy import AutoTuned, Policy, Timer, make_policy
+from repro_torch.core.worklist import (bucket_capacities, pick_bucket,
+                                       resize_items)
+from repro_torch.device import resolve_device
+from repro_torch.exec.spec import NOT_PORTED, ExecutionSpec
+from repro_torch.graphs.csr import Graph
+
+
+@dataclasses.dataclass
+class CacheStats:
+    """Hit/miss counters for the session's prepared-graph cache."""
+
+    hits: int = 0
+    misses: int = 0
+    evictions: int = 0
+
+
+def _graph_key(g) -> tuple:
+    """Graph half of the cache key: identity + static fields. Every entry
+    holds a reference to ``g``, so the id cannot be recycled while the
+    entry lives."""
+    if isinstance(g, Graph):
+        return ("graph", id(g), g.name, g.n_nodes, g.n_edges)
+    return ("ig", id(g), g.n_nodes, g.ell_width, g.n_hub, g.layout_kind)
+
+
+class Session:
+    """The device and the prepared-graph cache behind ``engine.color``.
+
+    ``device`` defaults to the CUDA device (``repro_torch.device``).
+    ``max_entries`` bounds the cache FIFO-style; ``None`` keeps every
+    entry.
+    """
+
+    def __init__(self, device=None, max_entries: "int | None" = None):
+        self.device = resolve_device(device)
+        self.cache: dict = {}
+        self.max_entries = max_entries
+        self.stats = CacheStats()
+        self._lock = threading.Lock()
+
+    def cached(self, key: tuple, build):
+        with self._lock:
+            if key in self.cache:
+                self.stats.hits += 1
+                return self.cache[key]
+            self.stats.misses += 1
+            entry = self.cache[key] = build()
+            while (self.max_entries is not None
+                   and len(self.cache) > self.max_entries):
+                self.cache.pop(next(iter(self.cache)))
+                self.stats.evictions += 1
+            return entry
+
+    def run(self, spec: ExecutionSpec, g, *, policy: "Policy | None" = None,
+            collect_tti: bool = False) -> ColoringResult:
+        """Color one graph (a host ``Graph`` or a prepared ``IPGCGraph``
+        on this session's device) as ``spec`` says."""
+        if spec.regime != "host":
+            raise NotImplementedError(NOT_PORTED[spec.regime])
+        return self._run_host(spec, g, policy=policy,
+                              collect_tti=collect_tti)
+
+    def run_batch(self, spec: ExecutionSpec, graphs):
+        raise NotImplementedError(NOT_PORTED["batch"])
+
+    def _prepare(self, spec: ExecutionSpec, g, alg):
+        """(prepared IPGCGraph, resolved window), cached per graph."""
+        if isinstance(g, ipgc.IPGCGraph):
+            if g.device != self.device:
+                raise ValueError(f"prepared graph lies on {g.device}, the "
+                                 f"session runs on {self.device}")
+            if spec.window == "auto":
+                raise ValueError("window='auto' needs a host Graph (it "
+                                 "reads the degree histogram)")
+            return g, spec.window
+        plan = resolve_plan(g, spec.layout)
+        key = ("prep", _graph_key(g), alg, spec.priority, plan, spec.window)
+
+        def build():
+            window = (adaptive_window(g) if spec.window == "auto"
+                      else spec.window)
+            ig = alg.prepare(g, priority=spec.priority, plan=plan,
+                             device=self.device)
+            return g, ig, window
+
+        _, ig, window = self.cached(key, build)
+        return ig, window
+
+    def _run_host(self, spec: ExecutionSpec, g, *, policy,
+                  collect_tti) -> ColoringResult:
+        alg = spec.resolved_algo()
+        fused = alg.resolve_fused(spec.fused, default=False)
+        ig, window = self._prepare(spec, g, alg)
+        n = ig.n_nodes
+        pol = policy or make_policy(spec.mode, spec.h)
+        caps = bucket_capacities(n, ratio=spec.bucket_ratio)
+        force_hub = ipgc.force_hub_enabled()
+        dense_fn, sparse_fn = alg.step_fns(fused)
+
+        colors, aux, wl = alg.init_state(ig)
+        count = n
+        trace: list[str] = []
+        counts: list[int] = []
+        tti: list[float] = []
+        t_start = time.perf_counter()
+        it = 0
+        while count > 0 and it < spec.max_iter:
+            use_dense = bool(pol(count, n))
+            counts.append(count)
+            with Timer() as t:
+                if use_dense:
+                    colors, aux, wl = dense_fn(ig, colors, aux, wl,
+                                               window=window,
+                                               force_hub=force_hub)
+                else:
+                    cap = pick_bucket(caps, count)
+                    if wl.capacity > cap:
+                        wl = resize_items(wl, cap, n)
+                    colors, aux, wl = sparse_fn(ig, colors, aux, wl,
+                                                window=window,
+                                                force_hub=force_hub)
+                count = int(wl.count)  # the Pipe's single scalar read-back
+            trace.append("D" if use_dense else "S")
+            if collect_tti:
+                tti.append(t.seconds)
+            if isinstance(pol, AutoTuned):
+                pol.observe(use_dense, counts[-1], n, t.seconds)
+            it += 1
+
+        total = time.perf_counter() - t_start
+        final, n_colors = alg.finalize(colors[:n].cpu().numpy())
+        return ColoringResult(colors=final, n_colors=n_colors,
+                              iterations=it, mode_trace="".join(trace),
+                              counts=counts, tti=tti, total_seconds=total)
+
+
+_DEFAULT_SESSIONS: dict[str, Session] = {}
+
+
+def default_session(device=None) -> Session:
+    """The process-wide session of a device, behind plain ``engine.color``
+    calls; bounded, since its entries pin graphs."""
+    dev = resolve_device(device)
+    key = str(dev)
+    if key not in _DEFAULT_SESSIONS:
+        _DEFAULT_SESSIONS[key] = Session(dev, max_entries=256)
+    return _DEFAULT_SESSIONS[key]
+
+
+def reset_default_session() -> None:
+    """Drop the process-default sessions (tests; frees pinned graphs)."""
+    _DEFAULT_SESSIONS.clear()

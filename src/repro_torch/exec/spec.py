@@ -1,0 +1,69 @@
+"""``ExecutionSpec`` — the frozen description of HOW a coloring runs
+(``repro/exec/spec.py``).
+
+Only the host regime (the per-iteration host loop) is ported. The other
+regimes of the reference are named here so that a spec asking for one
+fails with the ROADMAP item that brings it.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+REGIMES = ("host", "outlined", "dist")
+
+#: regimes of the reference the port does not run yet -> ROADMAP item
+NOT_PORTED = {
+    "outlined": "the outlined regime is not ported yet "
+                "(ROADMAP Queue A item 5)",
+    "dist": "the distributed Pipe is not ported yet "
+            "(ROADMAP Queue A item 8)",
+    "batch": "lane batching is not ported yet (ROADMAP Queue A item 6)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionSpec:
+    """Static execution configuration of a coloring run."""
+
+    #: dispatch regime; only "host" runs in the port
+    regime: str = "host"
+    #: policy mode ("hybrid" / "topology" / "data" / "hybrid-auto")
+    mode: str = "hybrid"
+    #: registry name or frozen Algorithm instance
+    algo: "str | object" = "ipgc"
+    #: engine-level LayoutPlan override (kind string / LayoutPlan / None)
+    layout: "str | object | None" = None
+    h: float = 0.6
+    window: "int | str" = "auto"
+    bucket_ratio: int = 2
+    max_iter: int = 10_000
+    priority: str = "hash"
+    #: step family; None resolves to the host loop's default (two-phase)
+    fused: "bool | None" = None
+
+    def __post_init__(self):
+        if self.regime not in REGIMES:
+            raise ValueError(
+                f"unknown regime {self.regime!r}; valid: {REGIMES}")
+
+    def resolved_algo(self):
+        from repro_torch.algos import get_algorithm
+        return get_algorithm(self.algo)
+
+
+def spec_for(*, mode: str = "hybrid", algo: "str | object" = "ipgc",
+             h: float = 0.6, window: "int | str" = "auto",
+             bucket_ratio: int = 2, max_iter: int = 10_000,
+             priority: str = "hash", fused: "bool | None" = None,
+             outline: bool = False,
+             layout: "str | object | None" = None) -> ExecutionSpec:
+    """Map the ``engine.color`` keyword surface onto a spec:
+    ``mode="dist-*"`` selects the distributed regime, ``outline=True``
+    the outlined one, else the host loop."""
+    if mode.startswith("dist-"):
+        regime = "dist"
+    else:
+        regime = "outlined" if outline else "host"
+    return ExecutionSpec(regime=regime, mode=mode, algo=algo, layout=layout,
+                         h=h, window=window, bucket_ratio=bucket_ratio,
+                         max_iter=max_iter, priority=priority, fused=fused)

@@ -1,0 +1,20 @@
+"""Graph substrate of the port: the staged construction pipeline
+(ingest -> reorder -> layout plan -> assembly, DESIGN.md §8), CSR/ELL/COO
+structures and the dataset registry. Host-side numpy, a copy of
+``repro.graphs`` (minus batching, partitioning and sampling)."""
+from repro_torch.graphs.csr import (  # noqa: F401
+    Graph,
+    GraphArrays,
+    NO_COLOR,
+    PAD_COLOR,
+)
+from repro_torch.graphs.ingest import EdgeList  # noqa: F401
+from repro_torch.graphs.layout import LAYOUT_KINDS, LayoutPlan, plan_layout  # noqa: F401
+from repro_torch.graphs.transform import REORDERINGS, Permutation  # noqa: F401
+from repro_torch.graphs.generators import SUITE_SPECS  # noqa: F401
+from repro_torch.graphs.registry import (  # noqa: F401
+    clear_dataset_cache,
+    dataset_names,
+    get_dataset,
+    register_dataset,
+)

@@ -1,0 +1,69 @@
+"""The kernel wrappers the engine calls.
+
+Each wrapper dispatches on where its operands lie: a CPU tensor goes to
+the kernel's plain PyTorch version (``*_plain``), a CUDA tensor to the
+hand-written CUDA kernel (``*_cuda``), which launches or raises. There is
+no fallback from one to the other. ``KERNEL_LAUNCHES`` counts the CUDA
+launches of each wrapper.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels._build import KERNEL_LAUNCHES  # noqa: F401
+from repro_torch.kernels.compact import compact_cuda, compact_plain
+from repro_torch.kernels.conflict import conflict_cuda, conflict_plain
+from repro_torch.kernels.fused_compact import (fused_compact_cuda,
+                                               fused_compact_plain)
+from repro_torch.kernels.mex_window import mex_window_cuda, mex_window_plain
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for tensors on {t.device}")
+
+
+def mex_window(nc: torch.Tensor, base: torch.Tensor,
+               extra_forb: "torch.Tensor | None",
+               window: int) -> torch.Tensor:
+    """First free window index per row, -1 if the window is full.
+
+    nc (R, K) int32 neighbour colors (pad/uncolored < 0); base (R,) int32;
+    extra_forb (R, W) bool or None.
+    """
+    fn = mex_window_cuda if _on_cuda(nc) else mex_window_plain
+    return fn(nc, base, extra_forb, window)
+
+
+def conflict(nc: torch.Tensor, npr: torch.Tensor, nbr_ids: torch.Tensor,
+             cu: torch.Tensor, pu: torch.Tensor,
+             ids: torch.Tensor) -> torch.Tensor:
+    """Per-row lose flags: same color >= 0 and a higher (priority, id)."""
+    fn = conflict_cuda if _on_cuda(nc) else conflict_plain
+    return fn(nc, npr, nbr_ids, cu, pu, ids)
+
+
+def compact(mask: torch.Tensor, capacity: "int | None" = None,
+            sentinel: "int | None" = None,
+            values: "torch.Tensor | None" = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Ordered compaction; ``capacity`` and ``sentinel`` default to N."""
+    n = mask.shape[0]
+    capacity = n if capacity is None else capacity
+    sentinel = n if sentinel is None else sentinel
+    fn = compact_cuda if _on_cuda(mask) else compact_plain
+    return fn(mask, capacity, sentinel, values)
+
+
+def fused_compact(nc, npr, nbr_ids, base, cu, pu, ids, active, pending,
+                  extra_forb, hub_lose, window: int, *, capacity: int,
+                  n_sentinel: int):
+    """One IPGC iteration over R rows: ``(new_colors, new_base, still,
+    items[capacity], count)`` (see ``kernels/fused_compact.py``)."""
+    fn = fused_compact_cuda if _on_cuda(nc) else fused_compact_plain
+    return fn(nc, npr, nbr_ids, base, cu, pu, ids, active, pending,
+              extra_forb, hub_lose, window, capacity=capacity,
+              n_sentinel=n_sentinel)

@@ -1,0 +1,111 @@
+"""The port's CUDA kernels on the card: each against its plain version,
+and a coloring on the card against the same coloring on the CPU. Needs a
+CUDA device and nvcc; skips without a device. Imports no JAX, so it runs
+where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels.compact import compact_plain
+from repro_torch.kernels.conflict import conflict_plain
+from repro_torch.kernels.fused_compact import fused_compact_plain
+from repro_torch.kernels.mex_window import mex_window_plain
+
+# the test workers share the machine's cores: no intra-op thread pool
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _t(a, dev):
+    return None if a is None else torch.from_numpy(np.asarray(a)).to(dev)
+
+
+@pytest.mark.parametrize("r,k,w", [(1, 1, 32), (7, 8, 128), (257, 40, 256),
+                                   (3000, 128, 64), (100, 3, 200)])
+@pytest.mark.parametrize("hub", [False, True])
+def test_row_kernels_match_plain(dev, r, k, w, hub):
+    rng = np.random.default_rng(r + k + w + hub)
+    nc = rng.integers(-2, 300, size=(r, k)).astype(np.int32)
+    npr = rng.integers(-1, 100, size=(r, k)).astype(np.int32)
+    nid = rng.integers(0, r + 1, size=(r, k)).astype(np.int32)
+    base = (rng.integers(0, 4, size=r) * w).astype(np.int32)
+    cu = rng.integers(-2, 300, size=r).astype(np.int32)
+    pu = rng.integers(0, 100, size=r).astype(np.int32)
+    ids = np.arange(r, dtype=np.int32)
+    act = rng.random(r) < 0.8
+    extra = (rng.random((r, w)) < 0.25) if hub else None
+    hl = ((rng.random(r) < 0.1) & act) if hub else None
+    c = [_t(a, dev) for a in (nc, npr, nid, cu, pu, ids)]
+    assert torch.equal(ops.conflict(*c), conflict_plain(*c))
+    m = [_t(a, dev) for a in (nc, base, extra)]
+    assert torch.equal(ops.mex_window(*m, w), mex_window_plain(*m, w))
+    case = [_t(a, dev) for a in (nc, npr, nid, base, cu, pu, ids, act,
+                                 act & (cu >= 0), extra, hl)]
+    for cap in (r, max(r // 3, 1), r + 5):
+        got = ops.fused_compact(*case, w, capacity=cap, n_sentinel=r)
+        want = fused_compact_plain(*case, w, capacity=cap, n_sentinel=r)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("n", [1, 2047, 2049, 100_003])
+@pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
+def test_compact_matches_plain(dev, n, density):
+    rng = np.random.default_rng(n)
+    mask = _t(rng.random(n) < density, dev)
+    values = _t(rng.integers(0, 10**6, size=n).astype(np.int32), dev)
+    before = _build.KERNEL_LAUNCHES["compact"]
+    for cap in (n, max(n // 2, 1), n + 7):
+        got, want = ops.compact(mask, cap, n), compact_plain(mask, cap, n)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got = ops.compact(mask, n, n, values)
+    want = compact_plain(mask, n, n, values)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert _build.KERNEL_LAUNCHES["compact"] == before + 4 * 3
+
+
+def test_wrappers_reject_bad_operands(dev):
+    nc = torch.zeros((4, 8), dtype=torch.int32, device=dev)
+    base = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="windows of 1..256"):
+        ops.mex_window(nc, base, None, 512)
+    with pytest.raises(TypeError, match="int32"):
+        ops.mex_window(nc.long(), base, None, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.mex_window(nc.t().contiguous().t(), base, None, 32)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("name,layout", [("kron_g500-logn21_s", "ell-tail"),
+                                         ("europe_osm_s", "auto"),
+                                         ("circuit5M_s", "csr-segment")])
+def test_card_coloring_equals_cpu(dev, name, layout, fused):
+    g = repro_torch.get_dataset(name, scale=0.05, layout=layout)
+    a = repro_torch.color(g, fused=fused)
+    b = repro_torch.color(g, fused=fused, device="cpu")
+    np.testing.assert_array_equal(a.colors, b.colors)
+    assert (a.iterations, a.mode_trace, a.counts) == \
+        (b.iterations, b.mode_trace, b.counts)
+    repro_torch.verify_coloring(g, a.colors)
+
+
+def test_prepared_graph_runs_on_its_device(dev):
+    g = repro_torch.get_dataset("europe_osm_s", scale=0.05, layout="auto")
+    ig = repro_torch.prepare(g)
+    assert ig.device.type == "cuda"
+    window = repro_torch.core.engine.adaptive_window(g)
+    a = repro_torch.color(ig, window=window, fused=True)
+    b = repro_torch.color(g, fused=True)
+    np.testing.assert_array_equal(a.colors, b.colors)
