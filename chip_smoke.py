@@ -9,17 +9,25 @@ each failing the script on any error:
 
 1. device: the card's name and power limit, and the kernels' build time;
 2. kernels: each hand-written kernel against its plain PyTorch version
-   on the card, at the shapes of the main path and at edge cases, exactly;
-   their times beside the plain version's, the byte bound and, where one
-   PyTorch call computes the same function, that call;
-3. path: the hybrid Pipe (``repro_torch.color``) on kron_g500-logn21_s at
-   scale 32 (2**21 nodes, ell-tail, hubs) and europe_osm_s at scale 127
-   (50.8M nodes, pure-ell), two-phase and fused, with the kernel launch
-   counts of each run and a verified coloring; then the same Pipe replayed
-   over the step functions with CUDA's sync debug mode set to "error"
-   everywhere but the per-iteration count read;
-4. card vs CPU: kron at scale 1 colored on the card and on the CPU gives
-   identical results.
+   on the card, at the shapes of the main paths and at edge cases,
+   exactly; their times beside the plain version's, the byte bound and,
+   where one PyTorch call computes the same function, that call;
+3. path: on kron_g500-logn21_s at scale 32 (2**21 nodes, ell-tail, hubs)
+   and europe_osm_s at scale 127 (50.8M nodes, pure-ell), the hybrid Pipe
+   (``repro_torch.color``) with ipgc two-phase and fused, jpl and
+   spec-greedy, with the kernel launch counts of each run (the counts are
+   zeroed just before it and read just after) and a verified coloring;
+   the ipgc and jpl Pipes replayed over their step functions with CUDA's
+   sync debug mode set to "error" everywhere but the per-iteration count
+   read; hybrid BFS (``repro_torch.core.bfs.bfs``) on kron in its three
+   modes, which must give the same levels; the paper's baselines
+   ``jpl_color`` and ``vb_color`` on kron;
+4. card vs CPU: kron at scale 1 colored (ipgc, jpl, spec-greedy) and
+   searched (BFS, three modes) on the card and on the CPU gives identical
+   results, and BFS equals the host oracle.
+
+BFS does not run on europe at full size: its road-like chain needs on the
+order of millions of levels from any source.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -39,17 +47,23 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 import repro_torch  # noqa: E402
+from repro_torch.algos import get_algorithm  # noqa: E402
 from repro_torch.algos.base import init_ipgc_state  # noqa: E402
-from repro_torch.core import ipgc  # noqa: E402
+from repro_torch.algos.jpl import round_hash  # noqa: E402
+from repro_torch.core import bfs as bfs_mod  # noqa: E402
+from repro_torch.core import ipgc, jpl_color, vb_color  # noqa: E402
 from repro_torch.core.engine import adaptive_window  # noqa: E402
 from repro_torch.core.policy import make_policy  # noqa: E402
-from repro_torch.core.worklist import (bucket_capacities,  # noqa: E402
-                                       pick_bucket, resize_items)
+from repro_torch.core.worklist import (Worklist,  # noqa: E402
+                                       bucket_capacities, pick_bucket,
+                                       resize_items)
 from repro_torch.exec import default_session  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.compact import compact_plain  # noqa: E402
 from repro_torch.kernels.conflict import conflict_plain  # noqa: E402
+from repro_torch.kernels.frontier import frontier_probe_plain  # noqa: E402
 from repro_torch.kernels.fused_compact import fused_compact_plain  # noqa: E402
+from repro_torch.kernels.jpl_prio import jpl_extrema_plain  # noqa: E402
 from repro_torch.kernels.mex_window import mex_window_plain  # noqa: E402
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the non-tensor-core
@@ -62,18 +76,26 @@ KRON = dict(name="kron_g500-logn21_s", scale=32, layout="ell-tail",
 ROAD = dict(name="europe_osm_s", scale=127, layout="auto")
 SMALL = dict(name="kron_g500-logn21_s", scale=1, layout="ell-tail",
              ell_cap=128)
+#: BFS starts from node 0 (in kron's giant component at scales 1 and 32)
+BFS_SOURCE = 0
 
+#: kernel -> (source, the TPU kernel's pallas_call it replaces, the launch
+#: counter of its wrapper in ``_build.KERNEL_LAUNCHES``)
 SOURCES = {
     "mex_window": ("src/repro_torch/kernels/csrc/mex_window.cu",
-                   "src/repro/kernels/mex_window.py:66"),
+                   "src/repro/kernels/mex_window.py:66", "mex_window"),
     "conflict": ("src/repro_torch/kernels/csrc/conflict.cu",
-                 "src/repro/kernels/conflict.py:49"),
+                 "src/repro/kernels/conflict.py:49", "conflict"),
     "compact": ("src/repro_torch/kernels/csrc/compact.cu",
-                "src/repro/kernels/compact.py:66"),
+                "src/repro/kernels/compact.py:66", "compact"),
     "fused_compact": ("src/repro_torch/kernels/csrc/fused_compact.cu",
-                      "src/repro/kernels/fused_compact.py:191"),
+                      "src/repro/kernels/fused_compact.py:191",
+                      "fused_compact"),
+    "jpl_extrema": ("src/repro_torch/kernels/csrc/jpl_prio.cu",
+                    "src/repro/kernels/jpl_prio.py:65", "jpl_prio"),
+    "frontier_probe": ("src/repro_torch/kernels/csrc/frontier.cu",
+                       "src/repro/kernels/frontier.py:35", "frontier"),
 }
-TWO_PHASE = ("mex_window", "conflict", "compact")
 
 
 def log(**fields) -> None:
@@ -186,6 +208,29 @@ def edge_cases(dev) -> None:
             assert_equal(ops.compact(mask, n, n, values),
                          compact_plain(mask, n, n, values),
                          f"compact values n={n}")
+    for r in (0, 1, 7, 257, 3000):
+        for k in (1, 3, 8, 40, 128):
+            for inactive in (0.3, 1.0):
+                npr = rng.integers(0, 2**31 - 1, size=(r, k)).astype(np.int32)
+                npr = np.where(rng.random((r, k)) < inactive, -1, npr)
+                x = t(npr.astype(np.int32))
+                assert_equal(ops.jpl_extrema(x), jpl_extrema_plain(x),
+                             f"jpl_extrema r={r} k={k}")
+            nbr = t(rng.random((r, k)) < 0.05)
+            for unvisited in (t(rng.random(r) < 0.6),
+                              torch.ones(r, dtype=torch.bool, device=dev)):
+                assert_equal(ops.frontier_probe(nbr, unvisited),
+                             frontier_probe_plain(nbr, unvisited),
+                             f"frontier_probe r={r} k={k}")
+            if r > 1:     # unaligned tiles take the narrow loads
+                y = x.reshape(-1)[1:][:(r - 1) * k].reshape(r - 1, k)
+                assert_equal(ops.jpl_extrema(y), jpl_extrema_plain(y),
+                             f"jpl_extrema unaligned r={r} k={k}")
+                z = nbr.reshape(-1)[1:][:(r - 1) * k].reshape(r - 1, k)
+                u = unvisited[1:]
+                assert_equal(ops.frontier_probe(z, u),
+                             frontier_probe_plain(z, u),
+                             f"frontier_probe unaligned r={r} k={k}")
     log(phase="kernels.edge_cases", equal=True)
 
 
@@ -214,9 +259,26 @@ def main_path_operands(ig, window: int):
                 window=window)
 
 
+def bottomup_frontier(ig, levels: int = 2) -> torch.Tensor:
+    """The frontier mask ``levels`` bottom-up BFS levels from the BFS
+    source."""
+    n = ig.n_nodes
+    dist = torch.full((n,), -1, dtype=torch.int32, device=ig.device)
+    dist[BFS_SOURCE] = 0
+    mask = torch.zeros(n, dtype=torch.bool, device=ig.device)
+    mask[BFS_SOURCE] = True
+    wl = Worklist(mask=mask, items=torch.full((n,), n, dtype=torch.int32,
+                                              device=ig.device),
+                  count=torch.ones((), dtype=torch.int32, device=ig.device))
+    for level in range(levels):
+        dist, wl = bfs_mod.bottomup_step(ig, dist, wl, level)
+    return wl.mask
+
+
 def kernel_phase(ig, window: int, reps: int = 10) -> dict:
-    """Each kernel at the kron main path's dense-step shapes: equality with
-    the plain version, then kernel / plain / library times and the bound."""
+    """Each kernel at the kron main paths' shapes (the IPGC dense step, the
+    JPL dense round, a bottom-up BFS level): equality with the plain
+    version, then kernel / plain / library times and the bound."""
     o = main_path_operands(ig, window)
     r, k = o["nc"].shape
     w = window
@@ -228,6 +290,7 @@ def kernel_phase(ig, window: int, reps: int = 10) -> dict:
     n_work = int(work.sum())
     n_same_pend = int((same & (o["pending"] & colored)[:, None]).sum())
     mask = o["active"]
+    hubs = o["extra"] is not None
     rows = {}
 
     def entry(name, kernel, plain, nbytes, ops_, library=None):
@@ -240,7 +303,7 @@ def kernel_phase(ig, window: int, reps: int = 10) -> dict:
             equal=True, ms=ms, kernel_ms=ms, plain_ms=cuda_ms(plain, 3),
             bound_ms=t_bound * 1e3, bound_by=by,
             library_ms=None if library is None else cuda_ms(library, reps),
-            shape=dict(rows=r, k=k, window=w, hubs=o["extra"] is not None))
+            shape=dict(rows=r, k=k, window=w, hubs=hubs))
 
     entry("mex_window",
           lambda: ops.mex_window(o["nc"], o["base"], o["extra"], w),
@@ -270,8 +333,26 @@ def kernel_phase(ig, window: int, reps: int = 10) -> dict:
           nbytes=r * 18 + r * 9 + o["capacity"] * 4 + n_work * k * 4
           + n_same_pend * 8 + (0 if o["extra"] is None else n_work * w + r),
           ops_=n_work * k * 4)
+    # the JPL dense round's tile at round 0, every node pending
+    pr = round_hash(o["ids"], torch.zeros((), dtype=torch.int32,
+                                          device=ig.device))
     del o, fused_args
-    log(phase="kernels.main_path", rows=list(rows.values()))
+    npr = torch.cat([pr, pr.new_full((1,), -1)])[ig.ell_idx]
+    entry("jpl_extrema", lambda: ops.jpl_extrema(npr),
+          lambda: jpl_extrema_plain(npr),
+          nbytes=r * k * 4 + r * 8, ops_=r * k * 2)
+    del npr
+    # a bottom-up BFS level's tile; bfs.bottomup_step passes unvisited all
+    # true, so the probe is a row any()
+    frontier = bottomup_frontier(ig)
+    nbr = torch.cat([frontier, frontier.new_zeros(1)])[ig.ell_idx]
+    unvisited = torch.ones(r, dtype=torch.bool, device=ig.device)
+    entry("frontier_probe", lambda: ops.frontier_probe(nbr, unvisited),
+          lambda: frontier_probe_plain(nbr, unvisited),
+          nbytes=r * k + 2 * r, ops_=r * k,
+          library=lambda: torch.any(nbr, dim=1))
+    log(phase="kernels.main_path", rows=list(rows.values()),
+        frontier_size=int(frontier.sum()))
     return rows
 
 
@@ -285,15 +366,35 @@ def build_graph(spec: dict):
     return g, time.perf_counter() - t0
 
 
-def replay_sync_free(ig, window: int, fused: bool, max_iter: int = 10_000):
-    """The host-loop Pipe over the public step functions, with CUDA's sync
+_peak_bytes = 0
+
+
+def reset_peak() -> None:
+    """Fold the device's peak memory so far into the run's peak, then
+    start a new peak for the next measured run."""
+    global _peak_bytes
+    _peak_bytes = max(_peak_bytes, torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+
+
+def start_counts() -> None:
+    """Zero the kernel launch counts just before a measured run."""
+    torch.cuda.synchronize()
+    reset_peak()
+    _build.KERNEL_LAUNCHES.reset()
+
+
+def replay_sync_free(ig, alg, window: int, fused: bool,
+                     max_iter: int = 10_000):
+    """The host-loop Pipe over ``alg``'s step functions, with CUDA's sync
     debug mode at "error" around every step: a step that synchronises with
-    the host raises. Only the per-iteration count read runs outside it."""
+    the host raises. Only the per-iteration count read runs outside it.
+    Returns the finalized colors, the iterations and the mode trace."""
     n = ig.n_nodes
     pol = make_policy("hybrid")
     caps = bucket_capacities(n, ratio=2)
-    dense, sparse = ipgc.step_fns(fused)
-    colors, base, wl = init_ipgc_state(ig)
+    dense, sparse = alg.step_fns(alg.resolve_fused(fused, default=False))
+    colors, aux, wl = alg.init_state(ig)
     torch.cuda.synchronize()
     count, it, trace = n, 0, []
     while count > 0 and it < max_iter:
@@ -302,70 +403,135 @@ def replay_sync_free(ig, window: int, fused: bool, max_iter: int = 10_000):
             wl = resize_items(wl, pick_bucket(caps, count), n)
         torch.cuda.set_sync_debug_mode("error")
         try:
-            colors, base, wl = (dense if use_dense else sparse)(
-                ig, colors, base, wl, window=window)
+            colors, aux, wl = (dense if use_dense else sparse)(
+                ig, colors, aux, wl, window=window)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         count = int(wl.count)
         trace.append("D" if use_dense else "S")
         it += 1
-    return colors[:n].cpu().numpy(), it, "".join(trace)
+    final, _ = alg.finalize(colors[:n].cpu().numpy())
+    return final, it, "".join(trace)
 
 
-def path_phase(g, build_s: float) -> dict:
-    """Both step families through ``repro_torch.color`` on ``g``; returns
-    the kernel launches per family."""
-    launches = {}
-    replay_ig, window = repro_torch.prepare(g), adaptive_window(g)
-    for fused in (False, True):
-        torch.cuda.synchronize()
-        _build.KERNEL_LAUNCHES.reset()
+#: (algorithm, fused, kernels its run must launch) of each coloring path
+COLORINGS = (("ipgc", False, ("mex_window", "conflict", "compact")),
+             ("ipgc", True, ("fused_compact",)),
+             ("jpl", None, ("jpl_prio", "compact")),
+             ("spec-greedy", None, ("fused_compact",)))
+
+
+def path_phase(g, build_s: float) -> list[dict]:
+    """Every coloring path through ``repro_torch.color`` on ``g``; returns
+    the kernel launches of each run. The ipgc and jpl Pipes are replayed
+    with the sync check."""
+    launches = []
+    replay_ig = repro_torch.prepare(g)
+    for algo, fused, need in COLORINGS:
+        alg = get_algorithm(algo)
+        start_counts()
         with ipgc.LAUNCH_COUNTS.scope() as passes:
             t0 = time.perf_counter()
-            r = repro_torch.color(g, fused=fused)
+            r = repro_torch.color(g, algo=algo, fused=fused)
             wall = time.perf_counter() - t0
             pass_counts = passes.as_dict()
         counts = _build.KERNEL_LAUNCHES.as_dict()
-        need = ("fused_compact",) if fused else TWO_PHASE
+        what = f"{g.name} {algo} fused={fused}"
         missing = [k for k in need if counts[k] == 0]
         if missing:
-            raise AssertionError(f"{g.name} fused={fused}: kernels "
-                                 f"{missing} never launched")
-        stats = repro_torch.verify_coloring(g, r.colors,
-                                            context=f"fused={fused}")
-        launches[fused] = counts
+            raise AssertionError(f"{what}: kernels {missing} never launched")
+        stats = repro_torch.verify_coloring(g, r.colors, context=what)
+        alg.check_invariants(r, g)
+        launches.append(counts)
         log(phase="path", graph=g.name, nodes=g.n_nodes, edges=g.n_edges,
             layout=g.layout.kind, ell_width=g.ell_width,
-            build_seconds=build_s, fused=fused, iterations=r.iterations,
-            n_colors=r.n_colors, mode_trace=r.mode_trace,
-            color_seconds=r.total_seconds, call_seconds=wall,
-            kernel_launches=counts, logical_passes=pass_counts,
-            verify=stats)
-        colors, iters, trace = replay_sync_free(replay_ig, window, fused)
+            build_seconds=build_s, algo=algo, fused=fused,
+            iterations=r.iterations, n_colors=r.n_colors,
+            mode_trace=r.mode_trace, color_seconds=r.total_seconds,
+            call_seconds=wall, kernel_launches=counts,
+            logical_passes=pass_counts, verify=stats, invariants=True,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+        if algo == "spec-greedy":      # the fused ipgc steps, replayed above
+            continue
+        window = adaptive_window(g) if alg.uses_window else 128
+        colors, iters, trace = replay_sync_free(replay_ig, alg, window, fused)
         if not (np.array_equal(colors, r.colors) and iters == r.iterations
                 and trace == r.mode_trace):
-            raise AssertionError(f"{g.name} fused={fused}: the sync-checked "
-                                 "replay differs from color()")
-        log(phase="path.sync_free_replay", graph=g.name, fused=fused,
-            iterations=iters, identical=True)
+            raise AssertionError(f"{what}: the sync-checked replay differs "
+                                 "from color()")
+        log(phase="path.sync_free_replay", graph=g.name, algo=algo,
+            fused=fused, iterations=iters, identical=True)
     return launches
+
+
+def bfs_phase(g) -> list[dict]:
+    """Hybrid BFS in its three modes from the BFS source: the same levels in
+    every mode; returns the kernel launches of each run."""
+    launches, first = [], None
+    for mode in ("hybrid", "bottomup", "topdown"):
+        start_counts()
+        t0 = time.perf_counter()
+        r = bfs_mod.bfs(g, BFS_SOURCE, mode=mode)
+        wall = time.perf_counter() - t0
+        counts = _build.KERNEL_LAUNCHES.as_dict()
+        if mode != "topdown" and counts["frontier"] == 0:
+            raise AssertionError(f"bfs {mode}: frontier never launched")
+        if first is None:
+            first = r
+        elif not (np.array_equal(r.dist, first.dist)
+                  and r.levels == first.levels):
+            raise AssertionError(f"bfs {mode}: levels differ from hybrid")
+        launches.append(counts)
+        log(phase="bfs", graph=g.name, nodes=g.n_nodes, source=BFS_SOURCE,
+            mode=mode, levels=r.levels, mode_trace=r.mode_trace,
+            reached=int((r.dist >= 0).sum()), bfs_seconds=r.total_seconds,
+            call_seconds=wall, kernel_launches=counts,
+            identical_to_hybrid=True,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    return launches
+
+
+def baselines_phase(g) -> None:
+    """The paper's Table III/IV baselines on the card."""
+    for name, fn in (("jpl_color", jpl_color), ("vb_color", vb_color)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn(g)
+        wall = time.perf_counter() - t0
+        stats = repro_torch.verify_coloring(g, r.colors, context=name)
+        log(phase="baseline", graph=g.name, baseline=name,
+            iterations=r.iterations, n_colors=r.n_colors,
+            color_seconds=r.total_seconds, call_seconds=wall, verify=stats)
 
 
 # --- phase 4 -------------------------------------------------------------------
 
 def card_vs_cpu_phase() -> None:
     g, _ = build_graph(SMALL)
-    for fused in (False, True):
-        a = repro_torch.color(g, fused=fused)
-        b = repro_torch.color(g, fused=fused, device="cpu")
+    for algo, fused, _ in COLORINGS:
+        a = repro_torch.color(g, algo=algo, fused=fused)
+        b = repro_torch.color(g, algo=algo, fused=fused, device="cpu")
         same = (np.array_equal(a.colors, b.colors)
                 and (a.n_colors, a.iterations, a.mode_trace, a.counts)
                 == (b.n_colors, b.iterations, b.mode_trace, b.counts))
         if not same:
-            raise AssertionError(f"card and CPU colorings differ "
-                                 f"(fused={fused})")
-        log(phase="card_vs_cpu", graph=g.name, nodes=g.n_nodes, fused=fused,
-            iterations=a.iterations, n_colors=a.n_colors, identical=True)
+            raise AssertionError(f"card and CPU colorings differ ({algo}, "
+                                 f"fused={fused})")
+        log(phase="card_vs_cpu", graph=g.name, nodes=g.n_nodes, algo=algo,
+            fused=fused, iterations=a.iterations, n_colors=a.n_colors,
+            identical=True)
+    oracle = bfs_mod.bfs_reference(g, BFS_SOURCE)
+    for mode in ("hybrid", "bottomup", "topdown"):
+        a = bfs_mod.bfs(g, BFS_SOURCE, mode=mode)
+        b = bfs_mod.bfs(g, BFS_SOURCE, mode=mode, device="cpu")
+        if not (np.array_equal(a.dist, b.dist)
+                and (a.levels, a.mode_trace) == (b.levels, b.mode_trace)
+                and np.array_equal(a.dist, oracle)):
+            raise AssertionError(f"bfs {mode}: card, CPU and the host "
+                                 "oracle differ")
+        log(phase="card_vs_cpu.bfs", graph=g.name, mode=mode,
+            levels=a.levels, mode_trace=a.mode_trace,
+            reached=int((a.dist >= 0).sum()), identical=True)
 
 
 def main() -> int:
@@ -384,21 +550,24 @@ def main() -> int:
     del kron_ig
     torch.cuda.empty_cache()
 
-    totals = dict.fromkeys(SOURCES, 0)
-    for g, build_s in ((kron, kron_s), build_graph(ROAD)):
-        for counts in path_phase(g, build_s).values():
-            for name, c in counts.items():
-                totals[name] += c
-        default_session().cache.clear()
-        torch.cuda.empty_cache()
+    runs = path_phase(kron, kron_s) + bfs_phase(kron)
+    baselines_phase(kron)
+    del kron
+    default_session().cache.clear()
+    torch.cuda.empty_cache()
+    runs += path_phase(*build_graph(ROAD))
+    default_session().cache.clear()
+    torch.cuda.empty_cache()
+    totals = {k: sum(c[k] for c in runs) for k in _build.SOURCES}
     if any(c == 0 for c in totals.values()):
         raise AssertionError(f"a kernel never launched on the path: {totals}")
 
     card_vs_cpu_phase()
     for name, row in rows.items():
-        row["launches"] = totals[name]
+        row["launches"] = totals[SOURCES[name][2]]
+    reset_peak()
     log(phase="done", seconds=time.perf_counter() - t_start,
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+        peak_mem_gb=_peak_bytes / 2**30)
     print(card, flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

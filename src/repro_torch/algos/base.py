@@ -13,8 +13,8 @@ The step contract the Pipe drives (shared with the IPGC steps):
                  mode switches stay free — the paper's invariant.
 
 Registry: algorithms register under a unique name; ``get_algorithm``
-accepts a name or an ``Algorithm`` instance (passthrough). Only ``ipgc``
-is ported so far.
+accepts a name or an ``Algorithm`` instance (passthrough). Registered:
+``ipgc``, ``jpl`` and ``spec-greedy``.
 """
 from __future__ import annotations
 
@@ -35,6 +35,9 @@ class Algorithm:
     name: str = "abstract"
     #: tie-break priority fed to ``prepare`` when the caller passes None
     default_priority: str = "hash"
+    #: whether the steps read a mex color window; ``window="auto"``
+    #: resolves to 128 for an algorithm that does not
+    uses_window: bool = True
 
     def prepare(self, g: Graph, *, priority: "str | None" = None, plan=None,
                 device=None) -> ipgc.IPGCGraph:
@@ -58,6 +61,14 @@ class Algorithm:
         """(final colors, n_colors): the IPGC contract, max + 1."""
         n_colors = int(colors.max()) + 1 if colors.size else 0
         return colors, n_colors
+
+    def check_invariants(self, result, g: "Graph | None" = None) -> None:
+        """Result invariants beyond plain validity; raises AssertionError.
+        Shared baseline: the persistent active set never grows between
+        host observations."""
+        counts = result.counts
+        if any(b > a for a, b in zip(counts, counts[1:])):
+            raise AssertionError(f"{self.name}: worklist grew: {counts}")
 
 
 def _compact_palette(colors: np.ndarray) -> tuple[np.ndarray, int]:
@@ -102,5 +113,4 @@ def get_algorithm(algo: "str | Algorithm") -> Algorithm:
     except KeyError:
         raise ValueError(
             f"unknown algorithm {algo!r}; registered: "
-            f"{sorted(_REGISTRY)} (jpl and spec-greedy are not ported "
-            "yet: ROADMAP Queue A item 4)") from None
+            f"{sorted(_REGISTRY)}") from None

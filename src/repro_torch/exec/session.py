@@ -90,16 +90,20 @@ class Session:
             if g.device != self.device:
                 raise ValueError(f"prepared graph lies on {g.device}, the "
                                  f"session runs on {self.device}")
-            if spec.window == "auto":
+            if spec.window != "auto":
+                return g, spec.window
+            if alg.uses_window:
                 raise ValueError("window='auto' needs a host Graph (it "
                                  "reads the degree histogram)")
-            return g, spec.window
+            return g, 128
         plan = resolve_plan(g, spec.layout)
         key = ("prep", _graph_key(g), alg, spec.priority, plan, spec.window)
 
         def build():
-            window = (adaptive_window(g) if spec.window == "auto"
-                      else spec.window)
+            if spec.window != "auto":
+                window = spec.window
+            else:
+                window = adaptive_window(g) if alg.uses_window else 128
             ig = alg.prepare(g, priority=spec.priority, plan=plan,
                              device=self.device)
             return g, ig, window

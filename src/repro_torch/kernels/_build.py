@@ -23,7 +23,8 @@ from pathlib import Path
 from repro_torch.obs.metrics import CounterGroup
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("mex_window", "conflict", "compact", "fused_compact")
+SOURCES = ("mex_window", "conflict", "compact", "fused_compact", "jpl_prio",
+           "frontier")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,9 +1,10 @@
 // Shared row machinery of the row kernels (mex_window, conflict,
-// fused_compact): a group of LPR = 2^lpr_log2 lanes (1..32) owns one row,
-// the lanes stride over the row's K entries, and an XOR-shuffle reduction
-// combines their partial results. Groups never straddle a warp (LPR divides
-// 32 and the block size is a multiple of 32), so every lane of a warp takes
-// part in each shuffle, also lanes past the last row.
+// fused_compact, jpl_prio, frontier): a group of LPR = 2^lpr_log2 lanes
+// (1..32) owns one row, the lanes stride over the row's entries, and an
+// XOR-shuffle reduction combines their partial results. Groups never
+// straddle a warp (LPR divides 32 and the block size is a multiple of 32),
+// so every lane of a warp takes part in each shuffle, also lanes past the
+// last row.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -74,6 +75,20 @@ struct Bitmap {
 __device__ __forceinline__ int reduce_or(int v, int lpr_log2) {
   for (int off = (1 << lpr_log2) >> 1; off > 0; off >>= 1)
     v |= __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+// Max of an int over the lane group.
+__device__ __forceinline__ int reduce_max(int v, int lpr_log2) {
+  for (int off = (1 << lpr_log2) >> 1; off > 0; off >>= 1)
+    v = max(v, __shfl_xor_sync(kFull, v, off));
+  return v;
+}
+
+// Min of an int over the lane group.
+__device__ __forceinline__ int reduce_min(int v, int lpr_log2) {
+  for (int off = (1 << lpr_log2) >> 1; off > 0; off >>= 1)
+    v = min(v, __shfl_xor_sync(kFull, v, off));
   return v;
 }
 

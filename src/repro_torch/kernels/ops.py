@@ -13,8 +13,11 @@ import torch
 from repro_torch.kernels._build import KERNEL_LAUNCHES  # noqa: F401
 from repro_torch.kernels.compact import compact_cuda, compact_plain
 from repro_torch.kernels.conflict import conflict_cuda, conflict_plain
+from repro_torch.kernels.frontier import (frontier_probe_cuda,
+                                          frontier_probe_plain)
 from repro_torch.kernels.fused_compact import (fused_compact_cuda,
                                                fused_compact_plain)
+from repro_torch.kernels.jpl_prio import jpl_extrema_cuda, jpl_extrema_plain
 from repro_torch.kernels.mex_window import mex_window_cuda, mex_window_plain
 
 
@@ -67,3 +70,18 @@ def fused_compact(nc, npr, nbr_ids, base, cu, pu, ids, active, pending,
     return fn(nc, npr, nbr_ids, base, cu, pu, ids, active, pending,
               extra_forb, hub_lose, window, capacity=capacity,
               n_sentinel=n_sentinel)
+
+
+def jpl_extrema(npr: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row (max, min of the entries >= 0) of JPL neighbour priorities;
+    npr (R, K) int32 with inactive entries -1 (see ``kernels/jpl_prio.py``)."""
+    fn = jpl_extrema_cuda if _on_cuda(npr) else jpl_extrema_plain
+    return fn(npr)
+
+
+def frontier_probe(nbr: torch.Tensor,
+                   unvisited: torch.Tensor) -> torch.Tensor:
+    """Per-row ``any(nbr) & unvisited``: nbr (R, K) bool, unvisited (R,)
+    bool (see ``kernels/frontier.py``)."""
+    fn = frontier_probe_cuda if _on_cuda(nbr) else frontier_probe_plain
+    return fn(nbr, unvisited)

@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card: each against its plain version,
-and a coloring on the card against the same coloring on the CPU. Needs a
+and colorings and BFS on the card against the same runs on the CPU. Needs a
 CUDA device and nvcc; skips without a device. Imports no JAX, so it runs
 where only PyTorch is installed:
 
@@ -10,10 +10,13 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.core.bfs import bfs, bfs_reference
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.compact import compact_plain
 from repro_torch.kernels.conflict import conflict_plain
+from repro_torch.kernels.frontier import frontier_probe_plain
 from repro_torch.kernels.fused_compact import fused_compact_plain
+from repro_torch.kernels.jpl_prio import jpl_extrema_plain
 from repro_torch.kernels.mex_window import mex_window_plain
 
 # the test workers share the machine's cores: no intra-op thread pool
@@ -109,3 +112,62 @@ def test_prepared_graph_runs_on_its_device(dev):
     a = repro_torch.color(ig, window=window, fused=True)
     b = repro_torch.color(g, fused=True)
     np.testing.assert_array_equal(a.colors, b.colors)
+
+
+@pytest.mark.parametrize("r,k", [(0, 8), (1, 1), (1, 128), (7, 3),
+                                 (257, 40), (3000, 128), (100, 5)])
+@pytest.mark.parametrize("inactive", [0.3, 1.0])
+def test_jpl_extrema_matches_plain(dev, r, k, inactive):
+    rng = np.random.default_rng(r * 3 + k)
+    npr = rng.integers(0, 2**31 - 1, size=(r, k)).astype(np.int32)
+    npr = np.where(rng.random((r, k)) < inactive, -1, npr).astype(np.int32)
+    x = _t(npr, dev)
+    before = _build.KERNEL_LAUNCHES["jpl_prio"]
+    got, want = ops.jpl_extrema(x), jpl_extrema_plain(x)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert _build.KERNEL_LAUNCHES["jpl_prio"] == before + 1
+    # a tile that is not 16-byte aligned takes the one-entry loads
+    if r > 1 and k % 4 == 0:
+        y = x.reshape(-1)[1:].reshape(-1)[:(r - 1) * k].reshape(r - 1, k)
+        got, want = ops.jpl_extrema(y), jpl_extrema_plain(y)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("r,k", [(0, 8), (1, 1), (1, 128), (7, 3),
+                                 (257, 40), (3000, 128), (100, 12)])
+@pytest.mark.parametrize("density", [0.0, 0.02, 0.5])
+def test_frontier_probe_matches_plain(dev, r, k, density):
+    rng = np.random.default_rng(r + k)
+    nbr = _t(rng.random((r, k)) < density, dev)
+    for unvisited in (_t(rng.random(r) < 0.6, dev),
+                      torch.ones(r, dtype=torch.bool, device=dev)):
+        assert torch.equal(ops.frontier_probe(nbr, unvisited),
+                           frontier_probe_plain(nbr, unvisited))
+    if r > 1:      # an unaligned tile takes the one-byte loads
+        y = nbr.reshape(-1)[1:][:(r - 1) * k].reshape(r - 1, k)
+        u = torch.ones(r - 1, dtype=torch.bool, device=dev)
+        assert torch.equal(ops.frontier_probe(y, u),
+                           frontier_probe_plain(y, u))
+
+
+@pytest.mark.parametrize("algo", ["jpl", "spec-greedy"])
+def test_card_algorithm_equals_cpu(dev, algo):
+    g = repro_torch.get_dataset("kron_g500-logn21_s", scale=1,
+                                layout="ell-tail", ell_cap=128)
+    a = repro_torch.color(g, algo=algo)
+    b = repro_torch.color(g, algo=algo, device="cpu")
+    np.testing.assert_array_equal(a.colors, b.colors)
+    assert (a.n_colors, a.iterations, a.mode_trace, a.counts) == \
+        (b.n_colors, b.iterations, b.mode_trace, b.counts)
+    repro_torch.verify_coloring(g, a.colors)
+
+
+@pytest.mark.parametrize("mode", ["hybrid", "topdown", "bottomup"])
+def test_card_bfs_equals_cpu(dev, mode):
+    g = repro_torch.get_dataset("kron_g500-logn21_s", scale=1,
+                                layout="ell-tail", ell_cap=128)
+    a = bfs(g, 0, mode=mode)
+    b = bfs(g, 0, mode=mode, device="cpu")
+    np.testing.assert_array_equal(a.dist, b.dist)
+    assert (a.levels, a.mode_trace) == (b.levels, b.mode_trace)
+    np.testing.assert_array_equal(a.dist, bfs_reference(g, 0))
