@@ -22,9 +22,19 @@ each failing the script on any error:
    read; hybrid BFS (``repro_torch.core.bfs.bfs``) on kron in its three
    modes, which must give the same levels; the paper's baselines
    ``jpl_color`` and ``vb_color`` on kron;
-4. card vs CPU: kron at scale 1 colored (ipgc, jpl, spec-greedy) and
+4. dist: the distributed Pipe (dense exchange) on kron with four shards on
+   the one card (``color_distributed(devices=[cuda:0] * 4)``: ipgc fused
+   and two-phase, spec-greedy, jpl) and on europe with one shard per
+   visible card (``color(mode="dist-hybrid")``: ipgc fused, the no-hub
+   ``fused_step`` over 50.8M rows); launch and exchange counts per run (1
+   exchange per fused iteration and JPL round, 2 per two-phase one), a
+   verified coloring, and a replay of each under sync debug "error"; the
+   ``fused_step`` kernel row is timed at the kron S=4 dense shape;
+5. card vs CPU: kron at scale 1 colored (ipgc, jpl, spec-greedy) and
    searched (BFS, three modes) on the card and on the CPU gives identical
-   results, and BFS equals the host oracle.
+   results, and BFS equals the host oracle; the distributed Pipe at 1 and
+   4 shards gives the same colors, iterations and trace on the card, on
+   the CPU and in the host engine on the same partitioned graph.
 
 BFS does not run on europe at full size: its road-like chain needs on the
 order of millions of levels from any source.
@@ -51,6 +61,7 @@ from repro_torch.algos import get_algorithm  # noqa: E402
 from repro_torch.algos.base import init_ipgc_state  # noqa: E402
 from repro_torch.algos.jpl import round_hash  # noqa: E402
 from repro_torch.core import bfs as bfs_mod  # noqa: E402
+from repro_torch.core import distributed as dist  # noqa: E402
 from repro_torch.core import ipgc, jpl_color, vb_color  # noqa: E402
 from repro_torch.core.engine import adaptive_window  # noqa: E402
 from repro_torch.core.policy import make_policy  # noqa: E402
@@ -63,6 +74,7 @@ from repro_torch.kernels.compact import compact_plain  # noqa: E402
 from repro_torch.kernels.conflict import conflict_plain  # noqa: E402
 from repro_torch.kernels.frontier import frontier_probe_plain  # noqa: E402
 from repro_torch.kernels.fused_compact import fused_compact_plain  # noqa: E402
+from repro_torch.kernels.fused_step import fused_step_plain  # noqa: E402
 from repro_torch.kernels.jpl_prio import jpl_extrema_plain  # noqa: E402
 from repro_torch.kernels.mex_window import mex_window_plain  # noqa: E402
 
@@ -95,7 +107,11 @@ SOURCES = {
                     "src/repro/kernels/jpl_prio.py:65", "jpl_prio"),
     "frontier_probe": ("src/repro_torch/kernels/csrc/frontier.cu",
                        "src/repro/kernels/frontier.py:35", "frontier"),
+    "fused_step": ("src/repro_torch/kernels/csrc/fused_step.cu",
+                   "src/repro/kernels/fused_step.py:99", "fused_step"),
 }
+#: the shards of the distributed Pipe on kron: four on the one card
+KRON_SHARDS = 4
 
 
 def log(**fields) -> None:
@@ -231,6 +247,41 @@ def edge_cases(dev) -> None:
                 assert_equal(ops.frontier_probe(z, u),
                              frontier_probe_plain(z, u),
                              f"frontier_probe unaligned r={r} k={k}")
+    for r in (0, 1, 7, 257, 3000):
+        for k in (1, 8, 128):
+            for w in (32, 256):
+                nc = rng.integers(-2, 300, size=(r, k)).astype(np.int32)
+                npr = rng.integers(-1, 100, size=(r, k)).astype(np.int32)
+                nid = rng.integers(0, r + 1, size=(r, k)).astype(np.int32)
+                base = (rng.integers(0, 4, size=r) * w).astype(np.int32)
+                cu = rng.integers(-2, 300, size=r).astype(np.int32)
+                pu = rng.integers(0, 100, size=r).astype(np.int32)
+                ids = np.arange(r, dtype=np.int32)
+                pend = (rng.random(r) < 0.8) & (cu >= 0)
+                extra = rng.random((r, w)) < 0.25
+                extra[::3] = True          # fully forbidden: first = -1
+                for e in (None, extra):
+                    case = [t(a) for a in (nc, npr, nid, base, cu, pu, ids,
+                                           pend, e)]
+                    got = ops.fused_step(*case, w)
+                    assert_equal(got, fused_step_plain(*case, w),
+                                 f"fused_step r={r} k={k} w={w} "
+                                 f"hub={e is not None}")
+                    if e is not None and r and not (got[1][::3] == -1).all():
+                        raise AssertionError("fused_step: a full window "
+                                             "did not give -1")
+                if r > 1:      # an unaligned view of every operand
+                    def view(a):
+                        flat = t(a).reshape(-1)
+                        x = torch.empty(flat.numel() + 1, dtype=flat.dtype,
+                                        device=dev)
+                        x[1:] = flat
+                        return x[1:].reshape(a.shape)
+                    case = [view(a) for a in (nc, npr, nid, base, cu, pu,
+                                              ids, pend, extra)]
+                    assert_equal(ops.fused_step(*case, w),
+                                 fused_step_plain(*case, w),
+                                 f"fused_step unaligned r={r} k={k} w={w}")
     log(phase="kernels.edge_cases", equal=True)
 
 
@@ -275,6 +326,23 @@ def bottomup_frontier(ig, levels: int = 2) -> torch.Tensor:
     return wl.mask
 
 
+def kernel_row(name, kernel, plain, nbytes, ops_, shape: dict,
+               library=None, reps: int = 10) -> dict:
+    """One kernel's row of the kernels line: equality with the plain
+    version at main-path shapes, then kernel / plain / library times and
+    the bound (its launches are filled in from the path runs)."""
+    err = assert_equal(kernel(), plain(), f"{name} at main-path shapes")
+    t_bound, by = bound(nbytes, ops_)
+    ms = cuda_ms(kernel, reps)
+    return dict(
+        name=name, route="cuda", source=SOURCES[name][0],
+        replaces=SOURCES[name][1], launches=0, max_abs_err=err,
+        equal=True, ms=ms, kernel_ms=ms, plain_ms=cuda_ms(plain, 3),
+        bound_ms=t_bound * 1e3, bound_by=by,
+        library_ms=None if library is None else cuda_ms(library, reps),
+        shape=shape)
+
+
 def kernel_phase(ig, window: int, reps: int = 10) -> dict:
     """Each kernel at the kron main paths' shapes (the IPGC dense step, the
     JPL dense round, a bottom-up BFS level): equality with the plain
@@ -290,20 +358,12 @@ def kernel_phase(ig, window: int, reps: int = 10) -> dict:
     n_work = int(work.sum())
     n_same_pend = int((same & (o["pending"] & colored)[:, None]).sum())
     mask = o["active"]
-    hubs = o["extra"] is not None
+    shape = dict(rows=r, k=k, window=w, hubs=o["extra"] is not None)
     rows = {}
 
     def entry(name, kernel, plain, nbytes, ops_, library=None):
-        err = assert_equal(kernel(), plain(), f"{name} at main-path shapes")
-        t_bound, by = bound(nbytes, ops_)
-        ms = cuda_ms(kernel, reps)
-        rows[name] = dict(
-            name=name, route="cuda", source=SOURCES[name][0],
-            replaces=SOURCES[name][1], launches=0, max_abs_err=err,
-            equal=True, ms=ms, kernel_ms=ms, plain_ms=cuda_ms(plain, 3),
-            bound_ms=t_bound * 1e3, bound_by=by,
-            library_ms=None if library is None else cuda_ms(library, reps),
-            shape=dict(rows=r, k=k, window=w, hubs=hubs))
+        rows[name] = kernel_row(name, kernel, plain, nbytes, ops_, shape,
+                                library, reps)
 
     entry("mex_window",
           lambda: ops.mex_window(o["nc"], o["base"], o["extra"], w),
@@ -506,6 +566,153 @@ def baselines_phase(g) -> None:
 
 # --- phase 4 -------------------------------------------------------------------
 
+#: (algorithm, fused, exchanges per iteration) of each distributed run
+DIST_RUNS = (("ipgc", True, 1), ("ipgc", False, 2), ("spec-greedy", None, 1),
+             ("jpl", None, 1))
+
+
+def dist_kernels(algo: str, fused) -> tuple:
+    """The kernels a distributed run of ``algo`` must launch."""
+    if algo == "jpl":
+        return ("jpl_prio", "compact")
+    if get_algorithm(algo).resolve_fused(fused, default=True):
+        return ("fused_step", "compact")
+    return ("mex_window", "conflict", "compact")
+
+
+def replay_dist_sync_free(ig, alg, mesh, window: int, fused, new_of_old,
+                          n_orig: int, max_iter: int = 10_000):
+    """The distributed Pipe over ``alg``'s distributed steps on the
+    prepared partitioned graph ``ig``, with CUDA's sync debug mode at
+    "error" around every step. Only the per-iteration count read (and the
+    bucket resize, as in ``replay_sync_free``) runs outside it. Returns
+    the finalized colors in the original labeling, the iterations and the
+    mode trace."""
+    n = ig.n_nodes
+    block = n // len(mesh)
+    pol = make_policy("hybrid")
+    caps = bucket_capacities(block, ratio=2)
+    dense, sparse = alg.make_dist_steps(
+        ig, mesh, window=window, fused=alg.resolve_fused(fused, default=True))
+    colors, aux, wl = dist.shard_state(mesh, *alg.init_state(ig))
+    torch.cuda.synchronize()
+    count, it, trace = n, 0, []
+    while count > 0 and it < max_iter:
+        use_dense = bool(pol(count, n))
+        if not use_dense:
+            cap = pick_bucket(caps, min(count, block))
+            if wl.capacity > cap:
+                wl = dist.resize_worklist(wl, cap, n)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            colors, aux, wl = (dense if use_dense else sparse)(colors, aux,
+                                                               wl)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        count = int(wl.count)
+        trace.append("D" if use_dense else "S")
+        it += 1
+    full = colors[0][:n].cpu().numpy()
+    final, _ = alg.finalize(full[new_of_old[:n_orig]])
+    return final, it, "".join(trace)
+
+
+def dist_phase(g, devices, runs) -> tuple[list[dict], dict]:
+    """The distributed Pipe on ``g`` for each of ``runs``: over
+    ``devices`` through ``color_distributed``, or (None) through
+    ``color(mode="dist-hybrid")`` with one shard per visible card. Every
+    run is verified, counted and replayed with the sync check. Returns the
+    kernel launches of each run, and the prepared partitioned graph, the
+    mesh and the window for the ``fused_step`` row."""
+    sess = default_session()
+    mesh = dist.resolve_mesh(None, devices, sess.device)
+    t0 = time.perf_counter()
+    g2, relabel = sess.partition(g, len(mesh))
+    partition_s = time.perf_counter() - t0
+    replay_ig = repro_torch.prepare(g2)
+    launches = []
+    for algo, fused, per_iter in runs:
+        alg = get_algorithm(algo)
+        start_counts()
+        with ipgc.LAUNCH_COUNTS.scope() as passes, \
+                dist.EXCHANGE_COUNTS.scope() as exchanges:
+            t0 = time.perf_counter()
+            if devices is None:
+                r = repro_torch.color(g, mode="dist-hybrid", algo=algo,
+                                      fused=fused)
+            else:
+                r = repro_torch.color_distributed(g, devices=devices,
+                                                  algo=algo, fused=fused)
+            wall = time.perf_counter() - t0
+            pass_counts = passes.as_dict()
+            n_exchanges = exchanges["color_psum"]
+        counts = _build.KERNEL_LAUNCHES.as_dict()
+        what = f"{g.name} dist S={len(mesh)} {algo} fused={fused}"
+        missing = [k for k in dist_kernels(algo, fused) if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"{what}: kernels {missing} never launched")
+        if n_exchanges != per_iter * r.iterations:
+            raise AssertionError(f"{what}: {n_exchanges} exchanges in "
+                                 f"{r.iterations} iterations")
+        stats = repro_torch.verify_coloring(g, r.colors, context=what)
+        alg.check_invariants(r, g)
+        launches.append(counts)
+        log(phase="dist", graph=g.name, nodes=g.n_nodes, edges=g.n_edges,
+            shards=len(mesh), devices=[str(d) for d in mesh],
+            partition_seconds=partition_s, padded_nodes=g2.n_nodes,
+            algo=algo, fused=fused, iterations=r.iterations,
+            n_colors=r.n_colors, mode_trace=r.mode_trace,
+            color_seconds=r.total_seconds, call_seconds=wall,
+            exchanges=n_exchanges, exchanges_per_iteration=per_iter,
+            exchange_bytes=sum(r.exchange_bytes), kernel_launches=counts,
+            logical_passes=pass_counts, verify=stats, invariants=True,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+        window = adaptive_window(g2) if alg.uses_window else 128
+        colors, iters, trace = replay_dist_sync_free(
+            replay_ig, alg, mesh, window, fused, relabel, g.n_nodes)
+        if not (np.array_equal(colors, r.colors) and iters == r.iterations
+                and trace == r.mode_trace):
+            raise AssertionError(f"{what}: the sync-checked replay differs "
+                                 "from the run")
+        log(phase="dist.sync_free_replay", graph=g.name, shards=len(mesh),
+            algo=algo, fused=fused, iterations=iters, identical=True)
+    return launches, dict(ig=replay_ig, mesh=mesh, window=adaptive_window(g2))
+
+
+def fused_step_row(ig, mesh, window: int, reps: int = 10) -> dict:
+    """The ``fused_step`` kernel at the dense shape of the distributed
+    Pipe's first shard: its operands two fused dense iterations into a
+    run, as ``core/distributed.py`` hands them to the kernel."""
+    dense, _ = get_algorithm("ipgc").make_dist_steps(ig, mesh, window=window,
+                                                     fused=True)
+    colors, base, wl = dist.shard_state(mesh, *init_ipgc_state(ig))
+    for _ in range(2):
+        colors, base, wl = dense(colors, base, wl)
+    sh = dist.shard_graph(ig, mesh)[0]
+    sig, c, b = sh.ig, colors[0], base[0]
+    nc = c[sig.ell_idx]
+    cu = c[sh.lo:sh.hi]
+    pending = wl.blocks[0].mask & (cu >= 0)
+    extra = None
+    if sig.n_hub > 0:
+        base_pad = dist._padded(sh, b, ig.n_nodes)
+        extra = ipgc._hub_forbidden(sig, c, base_pad, window)[sig.hub_slot]
+    args = (nc, sig.priority[sig.ell_idx], sig.ell_idx, b, cu,
+            sig.priority[sh.lo:sh.hi], sh.row_ids, pending, extra, window)
+    r, k = nc.shape
+    # priority and id bytes only at same-color entries of pending rows
+    n_same_pend = int(((nc == cu[:, None]) & pending[:, None]).sum())
+    nbytes = (r * k * 4 + r * (4 * 4 + 1) + r * (1 + 4) + n_same_pend * 8
+              + (0 if extra is None else r * window))
+    return kernel_row(
+        "fused_step", lambda: ops.fused_step(*args),
+        lambda: fused_step_plain(*args), nbytes, r * k * 4,
+        dict(rows=r, k=k, window=window, hubs=extra is not None,
+             shards=len(mesh)), None, reps)
+
+
+# --- phase 5 -------------------------------------------------------------------
+
 def card_vs_cpu_phase() -> None:
     g, _ = build_graph(SMALL)
     for algo, fused, _ in COLORINGS:
@@ -532,6 +739,30 @@ def card_vs_cpu_phase() -> None:
         log(phase="card_vs_cpu.bfs", graph=g.name, mode=mode,
             levels=a.levels, mode_trace=a.mode_trace,
             reached=int((a.dist >= 0).sum()), identical=True)
+    # the distributed Pipe: card, CPU and the host engine on the same
+    # partitioned graph (ipgc fused at 1 and 4 shards, every run at 4)
+    card = torch.device("cuda")
+    for s_count, dist_runs in ((1, DIST_RUNS[:1]), (KRON_SHARDS, DIST_RUNS)):
+        g2, relabel = default_session().partition(g, s_count)
+        for algo, fused, _ in dist_runs:
+            a = repro_torch.color_distributed(g, devices=[card] * s_count,
+                                              algo=algo, fused=fused)
+            b = repro_torch.color_distributed(g, devices=["cpu"] * s_count,
+                                              algo=algo, fused=fused)
+            h = repro_torch.color(g2, algo=algo,
+                                  fused=True if fused is None else fused)
+            h_colors = h.colors[relabel[:g.n_nodes]]
+            for other, colors in ((b, b.colors), (h, h_colors)):
+                if not (np.array_equal(a.colors, colors)
+                        and (a.iterations, a.mode_trace, a.counts)
+                        == (other.iterations, other.mode_trace,
+                            other.counts)):
+                    raise AssertionError(
+                        f"dist {algo} fused={fused} S={s_count}: the card, "
+                        "the CPU and the host engine differ")
+            log(phase="card_vs_cpu.dist", graph=g.name, shards=s_count,
+                algo=algo, fused=fused, iterations=a.iterations,
+                n_colors=a.n_colors, identical_cpu_and_host_engine=True)
 
 
 def main() -> int:
@@ -552,10 +783,20 @@ def main() -> int:
 
     runs = path_phase(kron, kron_s) + bfs_phase(kron)
     baselines_phase(kron)
-    del kron
     default_session().cache.clear()
     torch.cuda.empty_cache()
-    runs += path_phase(*build_graph(ROAD))
+    dist_runs, ctx = dist_phase(kron, [dev] * KRON_SHARDS, DIST_RUNS)
+    runs += dist_runs
+    rows["fused_step"] = fused_step_row(**ctx)
+    del kron, ctx
+    default_session().cache.clear()
+    torch.cuda.empty_cache()
+    road, road_s = build_graph(ROAD)
+    runs += path_phase(road, road_s)
+    default_session().cache.clear()
+    torch.cuda.empty_cache()
+    runs += dist_phase(road, None, DIST_RUNS[:1])[0]
+    del road
     default_session().cache.clear()
     torch.cuda.empty_cache()
     totals = {k: sum(c[k] for c in runs) for k in _build.SOURCES}

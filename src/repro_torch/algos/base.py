@@ -12,6 +12,14 @@ The step contract the Pipe drives (shared with the IPGC steps):
                  step (dense AND sparse) re-emits both representations so
                  mode switches stay free — the paper's invariant.
 
+Shard-safety declaration (DESIGN.md §7): an algorithm that sets
+``shard_safe=True`` promises that its ``make_dist_steps`` returns steps
+whose worklist state stays shard-local and whose only cross-shard value is
+the color vector — the invariants the distributed Pipe
+(``core/distributed.py``) is built on. The others declare
+``shard_safe=False`` with a ``shard_unsafe_reason``, and the distributed
+Pipe fails fast with it.
+
 Registry: algorithms register under a unique name; ``get_algorithm``
 accepts a name or an ``Algorithm`` instance (passthrough). Registered:
 ``ipgc``, ``jpl`` and ``spec-greedy``.
@@ -33,6 +41,10 @@ class Algorithm:
     """Base protocol; concrete algorithms subclass and override."""
 
     name: str = "abstract"
+    #: may this algorithm run in the distributed Pipe?
+    shard_safe: bool = False
+    #: raised by the distributed Pipe when it is asked for anyway
+    shard_unsafe_reason: str = ""
     #: tie-break priority fed to ``prepare`` when the caller passes None
     default_priority: str = "hash"
     #: whether the steps read a mex color window; ``window="auto"``
@@ -56,6 +68,15 @@ class Algorithm:
         """Map the caller's ``fused`` request (None = engine default) to
         the family this algorithm runs."""
         return default if fused is None else fused
+
+    def make_dist_steps(self, ig: ipgc.IPGCGraph, mesh, *, window: int,
+                        fused: bool, exchange: str = "dense"):
+        """(dense, sparse) distributed steps over ``mesh`` (a tuple of
+        devices, one per shard) on the prepared, partitioned graph ``ig``;
+        only called when ``shard_safe``."""
+        raise NotImplementedError(
+            f"algorithm {self.name!r} is not shard-safe: "
+            f"{self.shard_unsafe_reason or 'no distributed steps'}")
 
     def finalize(self, colors: np.ndarray) -> tuple[np.ndarray, int]:
         """(final colors, n_colors): the IPGC contract, max + 1."""

@@ -11,6 +11,7 @@ from repro_torch.core import ipgc
 @dataclasses.dataclass(frozen=True)
 class IPGC(Algorithm):
     name: str = "ipgc"
+    shard_safe: bool = True
     default_priority: str = "hash"
 
     def init_state(self, ig):
@@ -18,3 +19,12 @@ class IPGC(Algorithm):
 
     def step_fns(self, fused: bool):
         return ipgc.step_fns(fused)
+
+    def make_dist_steps(self, ig, mesh, *, window: int, fused: bool,
+                        exchange: str = "dense"):
+        from repro_torch.core.distributed import (make_dist_dense_step,
+                                                  make_dist_sparse_step)
+        return (make_dist_dense_step(ig, mesh, window=window, fused=fused,
+                                     exchange=exchange),
+                make_dist_sparse_step(ig, mesh, window=window, fused=fused,
+                                      exchange=exchange))

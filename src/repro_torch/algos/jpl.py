@@ -173,9 +173,111 @@ def jpl_sparse_step(ig: ipgc.IPGCGraph, colors: torch.Tensor,
     return colors2, rnd + 1, Worklist(mask=mask, items=new_items, count=count)
 
 
+# ---------------------------------------------------------------------------
+# distributed JPL rounds (dense exchange)
+# ---------------------------------------------------------------------------
+#
+# Shard-safety rests on two facts (DESIGN.md §§7+13):
+#   * priorities are owner-computable: ``round_hash(global id, round)``
+#     needs no exchange — any shard derives a ghost's priority locally;
+#   * neighbour activity is readable from colors: JPL never uncolors, so
+#     the persistent-worklist invariant specialises to
+#     ``mask == (colors == NO_COLOR)`` in every round, making
+#     ``where(colors[nbr] == NO_COLOR, round_hash(nbr, r), -1)`` exactly
+#     the host step's ``pr_ext[nbr]`` (the sentinel slot N holds PAD_COLOR,
+#     so pad lanes read -1).
+# A round is single-phase, so each distributed round makes exactly ONE
+# color exchange, and the round counter stays a replicated scalar.
+
+
+def make_jpl_dist_steps(ig: ipgc.IPGCGraph, mesh, *,
+                        exchange: str = "dense"):
+    """(dense_round, sparse_round) over the mesh, equal to
+    ``jpl_dense_step``/``jpl_sparse_step`` on the partitioned graph; the
+    state is ``core.distributed.shard_state``'s."""
+    from repro_torch.core import distributed as dist
+
+    dist.check_exchange(exchange)
+    shards = dist.shard_graph(ig, mesh)
+    n, nh = ig.n_nodes, ig.n_hub
+
+    def nbr_extrema(sig, colors, rnd, ell_rows, slot, valid=None):
+        nc = colors[ell_rows]
+        npr = torch.where(nc == NO_COLOR, round_hash(ell_rows, rnd), -1)
+        nbr_max, nbr_min = ops.jpl_extrema(npr)
+        if nh > 0:
+            tc = colors[sig.tail_dst]
+            tpr = torch.where(sig.tail_valid & (tc == NO_COLOR),
+                              round_hash(sig.tail_dst, rnd), -1)
+            hmax, hmin = _hub_extrema(sig, tpr)
+            hmax, hmin = hmax[slot], hmin[slot]
+            if valid is not None:
+                hmax = torch.where(valid, hmax, -1)
+                hmin = torch.where(valid, hmin, LARGE)
+            nbr_max = torch.maximum(nbr_max, hmax)
+            nbr_min = torch.minimum(nbr_min, hmin)
+        return nbr_max, nbr_min
+
+    def dense_local(sh, colors, rnd, mask_l):
+        cu = colors[sh.lo:sh.hi]
+        pend = mask_l & (cu == NO_COLOR)
+        pr = torch.where(pend, round_hash(sh.row_ids, rnd), -1)
+        nbr_max, nbr_min = nbr_extrema(sh.ig, colors, rnd, sh.ig.ell_idx,
+                                       sh.ig.hub_slot)
+        new_c, newly = _decide(pend, pr, nbr_max, nbr_min, rnd, cu)
+        delta = dist._padded(sh, new_c - cu, n + 1)
+        return delta, mask_l & ~newly
+
+    def sparse_local(sh, colors, rnd, items_l):
+        r = dist._sparse_rows(sh, colors, items_l)
+        pend = r.valid & (r.cu == NO_COLOR)
+        pr = torch.where(pend, round_hash(r.ids, rnd), -1)
+        nbr_max, nbr_min = nbr_extrema(sh.ig, colors, rnd, r.ell_rows,
+                                       r.slot, r.valid)
+        new_c, newly = _decide(pend, pr, nbr_max, nbr_min, rnd, r.cu)
+        delta = ipgc._set_rows(
+            torch.zeros(n + 1, dtype=torch.int32, device=sh.device), r.ids,
+            torch.where(r.valid, new_c - r.cu, 0))
+        return delta, r, pend & ~newly
+
+    def dense_round(colors, rnd, wl):
+        deltas, still = zip(*(
+            dense_local(sh, c, rd, b.mask)
+            for sh, c, rd, b in zip(shards, colors, rnd, wl.blocks)))
+        colors_out = dist._exchange_colors(mesh, colors, deltas)
+        blocks = []
+        for sh, st in zip(shards, still):
+            items, count = compact_items(sh.row_ids, st, n)
+            blocks.append(Worklist(mask=st, items=items, count=count))
+        return (colors_out, tuple(rd + 1 for rd in rnd),
+                dist._worklist(mesh, blocks))
+
+    def sparse_round(colors, rnd, wl):
+        deltas, rows, still = zip(*(
+            sparse_local(sh, c, rd, b.items)
+            for sh, c, rd, b in zip(shards, colors, rnd, wl.blocks)))
+        colors_out = dist._exchange_colors(mesh, colors, deltas)
+        blocks = []
+        for sh, b, r, st in zip(shards, wl.blocks, rows, still):
+            items, count = compact_items(b.items, st, n)
+            mask = ipgc._set_rows_drop(
+                b.mask, torch.where(r.valid, r.local, sh.hi - sh.lo), st)
+            blocks.append(Worklist(mask=mask, items=items, count=count))
+        return (colors_out, tuple(rd + 1 for rd in rnd),
+                dist._worklist(mesh, blocks))
+
+    dense_round.exchanges_per_iter = 1      # a JPL round is single-phase
+    sparse_round.exchanges_per_iter = 1
+    return dense_round, sparse_round
+
+
 @dataclasses.dataclass(frozen=True)
 class JPL(Algorithm):
     name: str = "jpl"
+    #: shard-safe: a round's priorities are owner-computable and neighbour
+    #: activity is readable from the exchanged colors (see
+    #: ``make_jpl_dist_steps``)
+    shard_safe: bool = True
     uses_window: bool = False
 
     def init_state(self, ig):
@@ -190,6 +292,12 @@ class JPL(Algorithm):
 
     def resolve_fused(self, fused, *, default):
         return False                      # single step family
+
+    def make_dist_steps(self, ig, mesh, *, window: int, fused: bool,
+                        exchange: str = "dense"):
+        # window and fused are protocol arguments JPL ignores (no mex
+        # window, one step family), as in the host steps
+        return make_jpl_dist_steps(ig, mesh, exchange=exchange)
 
     def finalize(self, colors):
         return _compact_palette(colors)

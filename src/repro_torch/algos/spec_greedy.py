@@ -22,6 +22,9 @@ from repro_torch.core import ipgc
 @dataclasses.dataclass(frozen=True)
 class SpecGreedy(Algorithm):
     name: str = "spec-greedy"
+    #: the distributed fused steps equal the local fused steps (DESIGN.md
+    #: §6), so the declaration holds by construction
+    shard_safe: bool = True
 
     def init_state(self, ig):
         return init_ipgc_state(ig)
@@ -31,6 +34,15 @@ class SpecGreedy(Algorithm):
 
     def resolve_fused(self, fused, *, default):
         return True                       # deferred repair IS the algorithm
+
+    def make_dist_steps(self, ig, mesh, *, window: int, fused: bool,
+                        exchange: str = "dense"):
+        from repro_torch.core.distributed import (make_dist_dense_step,
+                                                  make_dist_sparse_step)
+        return (make_dist_dense_step(ig, mesh, window=window, fused=True,
+                                     exchange=exchange),
+                make_dist_sparse_step(ig, mesh, window=window, fused=True,
+                                      exchange=exchange))
 
     def finalize(self, colors):
         return _compact_palette(colors)

@@ -9,3 +9,4 @@ from repro_torch.core.verify import (InvalidColoringError,  # noqa: F401
 from repro_torch.core import ipgc  # noqa: F401
 from repro_torch.core.ipgc import prepare  # noqa: F401
 from repro_torch.core.baselines import jpl_color, vb_color  # noqa: F401
+from repro_torch.core.distributed import color_distributed  # noqa: F401

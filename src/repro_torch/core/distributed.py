@@ -1,0 +1,561 @@
+"""Distributed hybrid coloring engine (the port of
+``repro/core/distributed.py``, dense exchange).
+
+Owner-computes partitioning of the paper's Pipe, both phases, so the
+persistent-worklist invariant (DESIGN.md §1) holds across shard
+boundaries:
+
+  * each shard owns a contiguous node block (``graphs.partition.
+    prepare_partition`` pads to equal, 8-aligned blocks and balances total
+    degree across them, so no shard owns all hubs);
+  * the ONLY cross-shard value is the color vector, published by the
+    additive all-gather: each shard sums in its disjoint owner-block delta
+    (int32[N+1]), and the sum lands on every shard's replica. The fused
+    steps (the default) make exactly ONE such exchange per
+    iteration — 4(N+1) bytes per shard, independent of the edge count —
+    and the two-phase steps exactly TWO (speculate, then undo), counted
+    in ``EXCHANGE_COUNTS`` when they run;
+  * worklist state stays shard-local in both phases: the dense sweep reads
+    its block of ``mask`` and re-emits its block of ``items``; the sparse
+    step gathers and O(C)-filters only its own items block, sliced down a
+    per-shard capacity ladder at bucket boundaries. The hybrid switch
+    needs one global count, the sum of the shards' counts, read once per
+    iteration by the host loop (``exec/session.py::_run_dist``).
+
+The port keeps the reference's single-controller shape: one host loop
+drives every shard. The mesh is a tuple of devices, one per shard, and a
+device may carry several shards (four shards on one card are the
+counterpart of a four-device mesh). Each step runs its local stage on
+every shard, then the collective as explicit tensor ops across the shards'
+tensors, then the next stage: the fused step splits once (stage, exchange,
+emission), the two-phase step twice. Shards on one device share one color
+replica, so no stage writes colors in place: every update goes through the
+exchange, which returns new tensors. The additive sum of int32 deltas is
+exact in any order.
+
+The fused steps equal ``ipgc.fused_*_step`` on the partitioned graph, so
+``color_distributed`` reproduces ``engine.color(g2, fused=True)``'s
+colors, iterations and mode trace for fixed-H policies on any shard
+count (DESIGN.md §6). Only ``exchange="dense"`` is ported: the packed
+boundary publish of the reference (DESIGN.md §13) raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core import ipgc
+from repro_torch.core.worklist import Worklist, compact_items, resize_block
+from repro_torch.device import resolve_device
+from repro_torch.obs.metrics import CounterGroup
+
+NO_COLOR = ipgc.NO_COLOR
+
+#: color-vector exchanges, counted when one runs (one per collective,
+#: whatever the shard count): ``color_psum`` is the additive all-gather
+EXCHANGE_COUNTS = CounterGroup("dist.exchanges", ("color_psum",))
+
+EXCHANGES = ("dense", "boundary", "auto")
+BOUNDARY_NOT_PORTED = ("the packed boundary exchange of the distributed "
+                       "Pipe (exchange='boundary' or 'auto') is not ported "
+                       "yet (ROADMAP Queue A item 12); use exchange='dense'")
+
+
+def check_exchange(exchange: str) -> None:
+    if exchange not in EXCHANGES:
+        raise ValueError(f"unknown exchange {exchange!r}; valid: "
+                         f"{EXCHANGES}")
+    if exchange != "dense":
+        raise NotImplementedError(BOUNDARY_NOT_PORTED)
+
+
+# ---------------------------------------------------------------------------
+# the mesh and the sharded state
+# ---------------------------------------------------------------------------
+
+def resolve_mesh(n_shards: "int | None" = None, devices=None,
+                 default=None) -> tuple[torch.device, ...]:
+    """The shard mesh: a tuple with one device per shard.
+
+    ``devices`` gives it explicitly (a device may repeat: several shards on
+    one card). Otherwise the shards go to the ``default`` device's kind: on
+    CUDA, ``n_shards=None`` is one shard per visible CUDA device (the
+    counterpart of ``jax.device_count()``) and a given count is dealt
+    round-robin over the visible devices; on the CPU every shard runs on
+    the CPU, one shard when ``n_shards`` is None.
+    """
+    if devices is not None:
+        mesh = tuple(resolve_device(d) for d in devices)
+        if not mesh:
+            raise ValueError("devices: the mesh needs at least one device")
+        if n_shards is not None and n_shards != len(mesh):
+            raise ValueError(f"n_shards={n_shards} disagrees with the "
+                             f"{len(mesh)} devices given")
+        return mesh
+    if n_shards is not None and n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    default = resolve_device(default)
+    if default.type == "cuda":
+        visible = torch.cuda.device_count()
+        s = visible if n_shards is None else n_shards
+        return tuple(torch.device("cuda", i % visible) for i in range(s))
+    return (default,) * (1 if n_shards is None else n_shards)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedWorklist:
+    """The persistent worklist over the shards: each block holds its
+    shard's ``mask`` block, ``items`` block (global ids, padded with N)
+    and local count; ``count`` is the global count (their sum, a 0-d int32
+    on the mesh's first device) that the host loop reads."""
+
+    blocks: tuple
+    count: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        """The per-shard items capacity."""
+        return self.blocks[0].capacity
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """One shard's view of the partitioned graph: ``ig`` holds the block's
+    ELL rows, degrees and hub slots, and replicas of the priority and tail
+    arrays, on the shard's device; ``lo``/``hi`` bound the owned ids."""
+
+    ig: ipgc.IPGCGraph
+    lo: int
+    hi: int
+    row_ids: torch.Tensor        # int32[hi - lo], the owned global ids
+
+    @property
+    def device(self) -> torch.device:
+        return self.row_ids.device
+
+
+_REPLICATED = ("priority", "tail_src", "tail_dst", "tail_valid", "tail_slot",
+               "hub_ids")
+
+
+def _per_device(mesh, make):
+    """``make(device)`` once per distinct device of the mesh, by shard."""
+    made = {}
+    for d in mesh:
+        if d not in made:
+            made[d] = make(d)
+    return tuple(made[d] for d in mesh)
+
+
+def shard_graph(ig: ipgc.IPGCGraph, mesh) -> tuple[Shard, ...]:
+    """Cut a prepared, partitioned graph (``n_nodes % len(mesh) == 0``)
+    into per-shard views. On the graph's own device the block arrays are
+    views, not copies."""
+    n, s_count = ig.n_nodes, len(mesh)
+    if n % s_count:
+        raise ValueError(f"the graph's {n} nodes do not split into "
+                         f"{s_count} equal blocks; run prepare_partition")
+    blk = n // s_count
+    reps = _per_device(mesh, lambda d: {f: getattr(ig, f).to(d)
+                                        for f in _REPLICATED})
+    shards = []
+    for s, (d, rep) in enumerate(zip(mesh, reps)):
+        lo, hi = s * blk, (s + 1) * blk
+        local = dataclasses.replace(
+            ig, ell_idx=ig.ell_idx[lo:hi].to(d),
+            degrees=ig.degrees[lo:hi].to(d),
+            hub_slot=ig.hub_slot[lo:hi].to(d), **rep)
+        shards.append(Shard(ig=local, lo=lo, hi=hi, row_ids=torch.arange(
+            lo, hi, dtype=torch.int32, device=d)))
+    return tuple(shards)
+
+
+def shard_state(mesh, colors: torch.Tensor, aux: torch.Tensor,
+                wl: Worklist):
+    """Split a whole-graph engine state ``(colors, aux, wl)`` over the
+    mesh: colors are replicated (one replica per device), a per-node
+    ``aux`` (IPGC's window bases, int32[N]) and the worklist are cut into
+    owner blocks, a scalar ``aux`` (JPL's round counter) is replicated.
+    The items are cut into equal blocks, which for a full worklist are the
+    shards' own ids."""
+    n, s_count = wl.mask.shape[0], len(mesh)
+    blk, cap = n // s_count, wl.capacity // s_count
+    colors_r = _per_device(mesh, colors.to)
+    if aux.dim() == 1:
+        aux_r = tuple(aux[s * blk:(s + 1) * blk].to(d)
+                      for s, d in enumerate(mesh))
+    else:
+        aux_r = _per_device(mesh, aux.to)
+    blocks = []
+    for s, d in enumerate(mesh):
+        items = wl.items[s * cap:(s + 1) * cap].to(d)
+        blocks.append(Worklist(mask=wl.mask[s * blk:(s + 1) * blk].to(d),
+                               items=items,
+                               count=(items < n).sum(dtype=torch.int32)))
+    return colors_r, aux_r, _worklist(mesh, blocks)
+
+
+def resize_worklist(wl: ShardedWorklist, capacity: int,
+                    n_nodes: int) -> ShardedWorklist:
+    """Shard-local bucket change: every shard slices (or pads) its own
+    already-compacted items block. Valid whenever ``capacity`` bounds
+    every shard's live count; the host loop picks
+    ``pick_bucket(caps, min(global count, block))``."""
+    return ShardedWorklist(
+        blocks=tuple(dataclasses.replace(
+            b, items=resize_block(b.items, capacity, n_nodes))
+            for b in wl.blocks),
+        count=wl.count)
+
+
+# ---------------------------------------------------------------------------
+# the collectives
+# ---------------------------------------------------------------------------
+
+def _psum(mesh, parts) -> tuple:
+    """The all-reduce: the sum of the shards' tensors on every shard's
+    device (computed once per distinct device)."""
+    def total(d):
+        acc = None
+        for p in parts:
+            q = p.to(d)
+            acc = q if acc is None else acc + q
+        return acc
+    return _per_device(mesh, total)
+
+
+def _exchange_colors(mesh, colors, deltas) -> tuple:
+    """Additive all-gather: the shards hold disjoint owner-block updates as
+    dense int32[N+1] deltas against the replicated vector, so their sum IS
+    the gather. Shards that share a replica get one result."""
+    EXCHANGE_COUNTS["color_psum"] += 1
+    out, done = [], {}
+    for c, t in zip(colors, _psum(mesh, deltas)):
+        key = (id(c), id(t))
+        if key not in done:
+            done[key] = c + t
+        out.append(done[key])
+    return tuple(out)
+
+
+def _worklist(mesh, blocks) -> ShardedWorklist:
+    """Wrap the shards' worklist blocks with the global count: the sum of
+    the local counts, on the mesh's first device."""
+    d0 = mesh[0]
+    count = torch.stack([b.count.to(d0) for b in blocks]).sum(
+        dtype=torch.int32)
+    return ShardedWorklist(blocks=tuple(blocks), count=count)
+
+
+def _padded(sh: Shard, block: torch.Tensor, size: int) -> torch.Tensor:
+    """A zero vector of length ``size`` with the shard's block written in
+    at its owned rows (with ``size`` N+1: the shard's exchange delta)."""
+    full = torch.zeros(size, dtype=block.dtype, device=sh.device)
+    full[sh.lo:sh.hi] = block
+    return full
+
+
+# ---------------------------------------------------------------------------
+# dense (topology-driven) distributed step
+# ---------------------------------------------------------------------------
+
+def _dense_fused_local(sh: Shard, colors, base_l, active, window: int):
+    ig = sh.ig
+    n = ig.n_nodes
+    nc = colors[ig.ell_idx]                            # local gather
+    cu = colors[sh.lo:sh.hi]
+    pu = ig.priority[sh.lo:sh.hi]
+    pending = active & (cu >= 0)
+    npr = ig.priority[ig.ell_idx]
+    extra = hub_lose = None
+    if ig.n_hub > 0:
+        base_pad = _padded(sh, base_l, n)
+        extra = ipgc._hub_forbidden(ig, colors, base_pad, window)[ig.hub_slot]
+        # only owned hub slots are read, and their tail_src rows are owned
+        # too — the shard's own pending flags suffice (no exchange)
+        pending_full = _padded(sh, pending, n + 1)
+        hub_lose = ipgc._hub_lose(ig, colors, pending_full)[ig.hub_slot]
+    lose, first, has = ipgc._fused_rows(nc, npr, ig.ell_idx, base_l, cu, pu,
+                                        sh.row_ids, pending, extra, window)
+    if hub_lose is not None:
+        lose = lose | (hub_lose & pending)
+    need = lose | (active & (cu < 0))
+    new_c = torch.where(need & has, base_l + first,
+                        torch.where(lose, NO_COLOR, cu))
+    new_base = torch.where(need & ~has, base_l + window, base_l)
+    # ONE exchange publishes the speculated colors AND the uncolorings
+    return _padded(sh, new_c - cu, n + 1), new_base, need
+
+
+def _dense_assign_local(sh: Shard, colors, base_l, active, window: int):
+    ig = sh.ig
+    n = ig.n_nodes
+    nc = colors[ig.ell_idx]
+    extra = None
+    if ig.n_hub > 0:
+        base_pad = _padded(sh, base_l, n)
+        extra = ipgc._hub_forbidden(ig, colors, base_pad, window)[ig.hub_slot]
+    cu = colors[sh.lo:sh.hi]
+    new_c, new_base, newly = ipgc._mex_rows(nc, base_l, active, cu, extra,
+                                            window)
+    # exchange 1 publishes the speculative colors of the owned rows
+    delta = _padded(sh, torch.where(active, new_c, cu) - cu, n + 1)
+    return delta, new_base, newly
+
+
+def _dense_resolve_local(sh: Shard, colors2, active, newly):
+    ig = sh.ig
+    n = ig.n_nodes
+    lose = ipgc._lose_rows(ig, ig.ell_idx, sh.row_ids, colors2, newly)
+    if ig.n_hub > 0:
+        # a local scatter: owned slots only read owned tail_src rows
+        newly_g = _padded(sh, newly, n + 1)
+        lose = lose | ipgc._hub_lose(ig, colors2, newly_g)[ig.hub_slot]
+    c2 = colors2[sh.lo:sh.hi]
+    # exchange 2 uncolors the losers (their writes were in colors2)
+    undo = _padded(sh, torch.where(lose, NO_COLOR - c2, 0), n + 1)
+    return undo, lose | (active & ~newly)
+
+
+def make_dist_dense_step(ig: ipgc.IPGCGraph, mesh, *, window: int = 128,
+                         fused: bool = False, exchange: str = "dense"):
+    """Build the dense distributed step over the mesh.
+
+    ``ig`` is the prepared, partitioned graph. Returns
+    ``step(colors, base, wl) -> (colors, base, wl)`` over the sharded
+    state of ``shard_state``: per-shard color replicas and base blocks,
+    and a ``ShardedWorklist``.
+
+    ``fused=False`` is the two-phase step (equal to ``ipgc.dense_step``,
+    two color exchanges per iteration); ``fused=True`` pipelines the
+    resolve of the last round with this round's assign (equal to
+    ``ipgc.fused_dense_step``, one exchange).
+    """
+    check_exchange(exchange)
+    shards = shard_graph(ig, mesh)
+    n = ig.n_nodes
+
+    def step(colors, base, wl: ShardedWorklist):
+        masks = [b.mask for b in wl.blocks]
+        if fused:
+            deltas, new_base, still = zip(*(
+                _dense_fused_local(sh, c, b, m, window)
+                for sh, c, b, m in zip(shards, colors, base, masks)))
+            colors_out = _exchange_colors(mesh, colors, deltas)
+        else:
+            deltas, new_base, newly = zip(*(
+                _dense_assign_local(sh, c, b, m, window)
+                for sh, c, b, m in zip(shards, colors, base, masks)))
+            colors2 = _exchange_colors(mesh, colors, deltas)
+            undos, still = zip(*(
+                _dense_resolve_local(sh, c, m, nw)
+                for sh, c, m, nw in zip(shards, colors2, masks, newly)))
+            colors_out = _exchange_colors(mesh, colors2, undos)
+        # the owned rows still active, as global ids (pad N), through the
+        # compact kernel
+        blocks = []
+        for sh, st in zip(shards, still):
+            items, count = compact_items(sh.row_ids, st, n)
+            blocks.append(Worklist(mask=st, items=items, count=count))
+        return colors_out, tuple(new_base), _worklist(mesh, blocks)
+
+    step.exchanges_per_iter = 1 if fused else 2
+    return step
+
+
+# ---------------------------------------------------------------------------
+# sparse (data-driven) distributed step — shard-local items/count
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _SparseRows:
+    """One shard's gathered worklist rows."""
+
+    valid: torch.Tensor       # bool[C]
+    local: torch.Tensor       # int64[C] block-local row (pad lanes -> 0)
+    ids: torch.Tensor         # int32[C] global ids, pad N
+    ell_rows: torch.Tensor    # int32[C, K], pad rows N
+    cu: torch.Tensor          # int32[C] current colors (pad PAD_COLOR)
+    base_rows: "torch.Tensor | None"   # int32[C] window bases
+    slot: "torch.Tensor | None"    # int32[C] hub slot (pad n_hub)
+    extra: "torch.Tensor | None"   # bool[C, W] hub forbidden bitmap
+
+
+def _sparse_rows(sh: Shard, colors, items_l, base_l=None,
+                 window: int = 0) -> _SparseRows:
+    """Gather the shard's worklist rows; with ``base_l`` also their window
+    bases and, on a graph with hubs, their hub forbidden bitmaps."""
+    ig = sh.ig
+    n = ig.n_nodes
+    blk = sh.hi - sh.lo
+    valid = items_l < n
+    # this shard only ever holds ids of its own block; the clip guards the
+    # pad lanes
+    local = torch.where(valid, items_l - sh.lo, 0).clamp(0, blk - 1).long()
+    ids = torch.where(valid, items_l, n)
+    ell_rows = torch.where(valid[:, None], ig.ell_idx[local], n)
+    slot = extra = base_rows = None
+    if ig.n_hub > 0:
+        slot = torch.where(valid, ig.hub_slot[local], ig.n_hub)
+    if base_l is not None:
+        base_rows = base_l[local]
+        if ig.n_hub > 0:
+            base_pad = _padded(sh, base_l, n)
+            extra = ipgc._hub_forbidden(ig, colors, base_pad, window)[slot]
+    return _SparseRows(valid=valid, local=local, ids=ids, ell_rows=ell_rows,
+                       cu=colors[ids], base_rows=base_rows, slot=slot,
+                       extra=extra)
+
+
+def _sparse_fused_local(sh: Shard, colors, base_l, items_l, window: int):
+    ig = sh.ig
+    n = ig.n_nodes
+    r = _sparse_rows(sh, colors, items_l, base_l, window)
+    nc = colors[r.ell_rows]
+    pu = ig.priority[r.ids]
+    npr = ig.priority[r.ell_rows]
+    pending = r.valid & (r.cu >= 0)
+    hub_lose = None
+    if ig.n_hub > 0:
+        pending_full = ipgc._set_rows(
+            torch.zeros(n + 1, dtype=torch.bool, device=sh.device),
+            torch.where(pending, items_l, n), pending)
+        hub_lose = ipgc._hub_lose(ig, colors, pending_full)[r.slot] & r.valid
+    lose, first, has = ipgc._fused_rows(nc, npr, r.ell_rows, r.base_rows,
+                                        r.cu, pu, r.ids, pending, r.extra,
+                                        window)
+    if hub_lose is not None:
+        lose = lose | (hub_lose & pending)
+    need = lose | (r.valid & (r.cu < 0))
+    new_c = torch.where(need & has, r.base_rows + first,
+                        torch.where(lose, NO_COLOR, r.cu))
+    new_base_rows = torch.where(need & ~has, r.base_rows + window,
+                                r.base_rows)
+    # ONE exchange (pad lanes write delta 0 at the sentinel)
+    delta = ipgc._set_rows(
+        torch.zeros(n + 1, dtype=torch.int32, device=sh.device), r.ids,
+        new_c - r.cu)
+    return delta, r, new_base_rows, need
+
+
+def _sparse_assign_local(sh: Shard, colors, base_l, items_l, window: int):
+    n = sh.ig.n_nodes
+    r = _sparse_rows(sh, colors, items_l, base_l, window)
+    nc = colors[r.ell_rows]
+    new_c, new_base_rows, newly = ipgc._mex_rows(nc, r.base_rows, r.valid,
+                                                 r.cu, r.extra, window)
+    delta = ipgc._set_rows(
+        torch.zeros(n + 1, dtype=torch.int32, device=sh.device), r.ids,
+        torch.where(r.valid, new_c - r.cu, 0))
+    return delta, r, new_base_rows, newly
+
+
+def _sparse_resolve_local(sh: Shard, colors2, items_l, r: _SparseRows,
+                          newly):
+    ig = sh.ig
+    n = ig.n_nodes
+    lose = ipgc._lose_rows(ig, r.ell_rows, r.ids, colors2, newly)
+    if ig.n_hub > 0:
+        newly_full = ipgc._set_rows(
+            torch.zeros(n + 1, dtype=torch.bool, device=sh.device),
+            torch.where(newly, items_l, n), newly)
+        hub_l = ipgc._hub_lose(ig, colors2, newly_full)
+        lose = lose | (hub_l[r.slot] & r.valid)
+    undo = ipgc._set_rows(
+        torch.zeros(n + 1, dtype=torch.int32, device=sh.device), r.ids,
+        torch.where(lose, NO_COLOR - colors2[r.ids], 0))
+    return undo, lose | (r.valid & ~newly)
+
+
+def _sparse_maintain(sh: Shard, block: Worklist, base_l, r: _SparseRows,
+                     new_base_rows, still):
+    """O(C), shard-local: filter the items block, write the mask and base
+    rows back (pad lanes go to the dropped row ``blk``)."""
+    n = sh.ig.n_nodes
+    blk = sh.hi - sh.lo
+    items, count = compact_items(block.items, still, n)
+    rows = torch.where(r.valid, r.local, blk)
+    mask = ipgc._set_rows_drop(block.mask, rows, still)
+    base = ipgc._set_rows_drop(base_l, rows, new_base_rows)
+    return Worklist(mask=mask, items=items, count=count), base
+
+
+def make_dist_sparse_step(ig: ipgc.IPGCGraph, mesh, *, window: int = 128,
+                          fused: bool = False, exchange: str = "dense"):
+    """Build the data-driven distributed step over shard-local worklists.
+
+    Each shard gathers only its own compacted items block (global ids it
+    owns, padded with N), so per-iteration cost tracks the shard's share
+    of the active set, not its block size. The color exchange is the same
+    additive all-gather as the dense step; the worklist filter and the
+    ``mask`` write-back stay O(C) and shard-local.
+    """
+    check_exchange(exchange)
+    shards = shard_graph(ig, mesh)
+
+    def step(colors, base, wl: ShardedWorklist):
+        items = [b.items for b in wl.blocks]
+        if fused:
+            deltas, rows, new_base_rows, still = zip(*(
+                _sparse_fused_local(sh, c, b, it, window)
+                for sh, c, b, it in zip(shards, colors, base, items)))
+            colors_out = _exchange_colors(mesh, colors, deltas)
+        else:
+            deltas, rows, new_base_rows, newly = zip(*(
+                _sparse_assign_local(sh, c, b, it, window)
+                for sh, c, b, it in zip(shards, colors, base, items)))
+            colors2 = _exchange_colors(mesh, colors, deltas)
+            undos, still = zip(*(
+                _sparse_resolve_local(sh, c, it, r, nw)
+                for sh, c, it, r, nw in zip(shards, colors2, items, rows,
+                                            newly)))
+            colors_out = _exchange_colors(mesh, colors2, undos)
+        blocks, bases = zip(*(
+            _sparse_maintain(sh, blk, b, r, nb, st)
+            for sh, blk, b, r, nb, st in zip(shards, wl.blocks, base, rows,
+                                             new_base_rows, still)))
+        return colors_out, bases, _worklist(mesh, blocks)
+
+    step.exchanges_per_iter = 1 if fused else 2
+    return step
+
+
+def color_distributed(g, *, n_shards: "int | None" = None, devices=None,
+                      device=None, mode: str = "hybrid",
+                      algo: "str | object" = "ipgc", h: float = 0.6,
+                      window: "int | str" = "auto", bucket_ratio: int = 2,
+                      max_iter: int = 10_000, priority: str = "hash",
+                      policy=None, collect_tti: bool = False,
+                      fused: "bool | None" = True, balance: bool = True,
+                      layout: "str | object | None" = None,
+                      exchange: str = "dense", session=None):
+    """Sharded hybrid Pipe: the host loop over the distributed
+    steps (``Session.run`` with ``ExecutionSpec(regime="dist")``).
+
+    The graph is padded and degree-balanced into equal owner blocks
+    (``prepare_partition``); the loop then runs the host Pipe's control
+    flow — policy on the global count, per-shard capacity ladder with
+    slices at bucket boundaries — over the distributed steps. With the
+    default ``fused=True`` the result matches
+    ``engine.color(g2, fused=True)`` on the partitioned graph for fixed-H
+    policies (colors, iterations, mode trace) on any shard count. Colors
+    come back in ``g``'s original labeling.
+
+    The mesh: ``devices`` (one per shard), else ``n_shards`` shards on the
+    kind of ``device`` (see ``resolve_mesh``; ``device=None`` is CUDA).
+    ``algo`` must name a shard-safe algorithm. ``session`` defaults to the
+    process-default session of the mesh's first device.
+    """
+    from repro_torch.exec import ExecutionSpec, default_session
+    spec = ExecutionSpec(
+        regime="dist", mode=mode, algo=algo, layout=layout, h=h,
+        window=window, bucket_ratio=bucket_ratio, max_iter=max_iter,
+        priority=priority, fused=fused, n_shards=n_shards, balance=balance,
+        exchange=exchange)
+    if session is None:
+        if device is None and devices is not None:
+            device = list(devices)[0]
+        session = default_session(device)
+    return session.run(spec, g, policy=policy, collect_tti=collect_tti,
+                       devices=devices)

@@ -30,6 +30,11 @@ class ColoringResult:
     counts: list[int]           # worklist size per iteration
     tti: list[float]            # wall seconds per iteration (collect_tti)
     total_seconds: float
+    host_dispatches: int = 0    # step dispatches from the host loop
+    # dist regime only (DESIGN.md §13): per-iteration exchange-path trace
+    # ('d' dense) and the bytes each iteration moved per shard
+    exchange_trace: str = ""
+    exchange_bytes: list = dataclasses.field(default_factory=list)
 
 
 def resolve_plan(g, layout):
@@ -79,14 +84,23 @@ def color(
     outline: bool = False,         # the outlined regime is not ported yet
     layout: "str | object | None" = None,
     device=None,                   # None = the CUDA device
+    n_shards: "int | None" = None,  # dist-* modes: shard count
+    exchange: str = "dense",       # dist-* modes: color publication path
+    devices=None,                  # dist-* modes: one device per shard
 ) -> ColoringResult:
     """Color ``g`` (a host ``Graph``, or an ``IPGCGraph`` prepared on
     ``device``) with the hybrid Pipe on the process-default session of
-    ``device``."""
+    ``device``. ``mode="dist-*"`` runs the distributed Pipe over
+    ``devices`` (else ``n_shards`` shards on ``device``'s kind; see
+    ``core.distributed.resolve_mesh``); with ``devices`` and no
+    ``device`` the session is that of the first shard's device."""
     from repro_torch.exec import default_session, spec_for
     spec = spec_for(mode=mode, algo=algo, h=h, window=window,
                     bucket_ratio=bucket_ratio, max_iter=max_iter,
                     priority=priority, fused=fused, outline=outline,
-                    layout=layout)
+                    layout=layout, n_shards=n_shards, exchange=exchange)
+    if device is None and devices is not None:
+        device = list(devices)[0]
     return default_session(device).run(spec, g, policy=policy,
-                                       collect_tti=collect_tti)
+                                       collect_tti=collect_tti,
+                                       devices=devices)

@@ -19,7 +19,8 @@ the full dual worklist.
 
 The row-wise work goes through ``kernels.ops``: on a CUDA device the
 hand-written kernels (``mex_window``, ``conflict``, ``compact``,
-``fused_compact``), on the CPU their plain PyTorch versions. Hub tails
+``fused_compact``, and ``fused_step`` for the distributed steps of
+``core/distributed.py``), on the CPU their plain PyTorch versions. Hub tails
 (degree > ELL width) fold in through a per-hub forbidden/conflict
 side-channel of PyTorch scatters, and the csr-segment layout runs edge-wise
 scatters (``kernels/csr_segment.py``).
@@ -327,6 +328,19 @@ def _fused_compact_rows(ig: IPGCGraph, nc, npr, nbr_ids, base_rows, cu, pu,
     return ops.fused_compact(nc, npr, nbr_ids, base_rows, cu, pu, ids,
                              active, pending, extra_forb, hub_lose, window,
                              capacity=capacity, n_sentinel=ig.n_nodes)
+
+
+def _fused_rows(nc, npr, nbr_ids, base_rows, cu, pu, ids, pending,
+                extra_forb, window: int):
+    """Resolve + windowed mex from one gathered tile, without emission:
+    ``(lose, first, has)`` (the ``fused_step`` kernel). The distributed
+    fused steps use it: their emission follows the cross-shard exchange,
+    so it cannot fold into the row pass. ``first`` is -1 where ``has`` is
+    False; callers read it only where ``has`` is True."""
+    LAUNCH_COUNTS["fused"] += 1
+    lose, first = ops.fused_step(nc, npr, nbr_ids, base_rows, cu, pu, ids,
+                                 pending, extra_forb, window)
+    return lose, first, first >= 0
 
 
 # ---------------------------------------------------------------------------

@@ -68,6 +68,10 @@ class AutoTuned:
 
 
 def make_policy(mode: str, h: float = 0.6) -> Policy:
+    # "dist-hybrid" etc. select the distributed Pipe at the dispatch layer;
+    # the switching policy is the same, fed the global count (DESIGN.md §6)
+    if mode.startswith("dist-"):
+        mode = mode[len("dist-"):]
     if mode == "hybrid":
         return FixedH(h)
     if mode == "hybrid-auto":
@@ -77,6 +81,21 @@ def make_policy(mode: str, h: float = 0.6) -> Policy:
     if mode in ("data", "sparse", "plain"):
         return AlwaysSparse()
     raise ValueError(f"unknown mode {mode!r}")
+
+
+def exchange_threshold(n: int, n_shards: int, exchange: str) -> int:
+    """Changed-boundary-count threshold of the distributed packed publish
+    (DESIGN.md §13): ``"boundary"`` packs whenever the buffer fits
+    (``n + 1``), ``"auto"`` below the byte break-even ``(n+1) / (2S)``;
+    ``"dense"`` never consults one and gets -1."""
+    if exchange == "dense":
+        return -1
+    if exchange == "boundary":
+        return n + 1
+    if exchange == "auto":
+        return max(8, (n + 1) // (2 * max(n_shards, 1)))
+    raise ValueError(f"unknown exchange {exchange!r}; valid: "
+                     "('dense', 'boundary', 'auto')")
 
 
 class Timer:

@@ -1,9 +1,10 @@
 """``ExecutionSpec`` — the frozen description of HOW a coloring runs
 (``repro/exec/spec.py``).
 
-Only the host regime (the per-iteration host loop) is ported. The other
-regimes of the reference are named here so that a spec asking for one
-fails with the ROADMAP item that brings it.
+The host regime (the per-iteration host loop) and the distributed regime
+(the sharded Pipe, dense exchange) are ported. The other regimes of the
+reference are named here so that a spec asking for one fails with the
+ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -15,8 +16,6 @@ REGIMES = ("host", "outlined", "dist")
 NOT_PORTED = {
     "outlined": "the outlined regime is not ported yet "
                 "(ROADMAP Queue A item 5)",
-    "dist": "the distributed Pipe is not ported yet "
-            "(ROADMAP Queue A item 8)",
     "batch": "lane batching is not ported yet (ROADMAP Queue A item 6)",
 }
 
@@ -25,9 +24,10 @@ NOT_PORTED = {
 class ExecutionSpec:
     """Static execution configuration of a coloring run."""
 
-    #: dispatch regime; only "host" runs in the port
+    #: dispatch regime: "host" or "dist" ("outlined" is not ported yet)
     regime: str = "host"
-    #: policy mode ("hybrid" / "topology" / "data" / "hybrid-auto")
+    #: policy mode ("hybrid" / "topology" / "data" / "hybrid-auto"; a
+    #: "dist-" prefix is accepted and stripped by make_policy)
     mode: str = "hybrid"
     #: registry name or frozen Algorithm instance
     algo: "str | object" = "ipgc"
@@ -38,13 +38,24 @@ class ExecutionSpec:
     bucket_ratio: int = 2
     max_iter: int = 10_000
     priority: str = "hash"
-    #: step family; None resolves to the host loop's default (two-phase)
+    #: step family; None resolves per regime (host two-phase, dist fused)
     fused: "bool | None" = None
+    #: dist regime only: shard count (None = one per visible CUDA device)
+    n_shards: "int | None" = None
+    #: dist regime only: degree-balance the partition
+    balance: bool = True
+    #: dist regime only: cross-shard color publication path; only
+    #: "dense" (the additive psum of the full vector) is ported
+    exchange: str = "dense"
 
     def __post_init__(self):
         if self.regime not in REGIMES:
             raise ValueError(
                 f"unknown regime {self.regime!r}; valid: {REGIMES}")
+        if self.exchange not in ("dense", "boundary", "auto"):
+            raise ValueError(
+                f"unknown exchange {self.exchange!r}; valid: "
+                "('dense', 'boundary', 'auto')")
 
     def resolved_algo(self):
         from repro_torch.algos import get_algorithm
@@ -56,7 +67,9 @@ def spec_for(*, mode: str = "hybrid", algo: "str | object" = "ipgc",
              bucket_ratio: int = 2, max_iter: int = 10_000,
              priority: str = "hash", fused: "bool | None" = None,
              outline: bool = False,
-             layout: "str | object | None" = None) -> ExecutionSpec:
+             layout: "str | object | None" = None,
+             n_shards: "int | None" = None, balance: bool = True,
+             exchange: str = "dense") -> ExecutionSpec:
     """Map the ``engine.color`` keyword surface onto a spec:
     ``mode="dist-*"`` selects the distributed regime, ``outline=True``
     the outlined one, else the host loop."""
@@ -66,4 +79,6 @@ def spec_for(*, mode: str = "hybrid", algo: "str | object" = "ipgc",
         regime = "outlined" if outline else "host"
     return ExecutionSpec(regime=regime, mode=mode, algo=algo, layout=layout,
                          h=h, window=window, bucket_ratio=bucket_ratio,
-                         max_iter=max_iter, priority=priority, fused=fused)
+                         max_iter=max_iter, priority=priority, fused=fused,
+                         n_shards=n_shards, balance=balance,
+                         exchange=exchange)

@@ -1,10 +1,12 @@
 """Graph substrate of the port: the staged construction pipeline
 (ingest -> reorder -> layout plan -> assembly, DESIGN.md §8), CSR/ELL/COO
-structures and the dataset registry. Host-side numpy, a copy of
-``repro.graphs`` (minus batching, partitioning and sampling)."""
+structures, the dataset registry and the partitioning of the distributed
+Pipe. Host-side numpy, a copy of ``repro.graphs`` (minus batching,
+sampling and the boundary sets of the packed exchange)."""
 from repro_torch.graphs.csr import (  # noqa: F401
     Graph,
     GraphArrays,
+    build_graph,
     NO_COLOR,
     PAD_COLOR,
 )

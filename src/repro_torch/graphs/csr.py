@@ -87,3 +87,27 @@ def _splitmix32(x: np.ndarray) -> np.ndarray:
     x ^= x >> np.uint32(16)
     # keep positive int32 (the priority pad slot is -1)
     return (x >> np.uint32(1)).astype(np.int32)
+
+
+def build_graph(
+    src: np.ndarray,
+    dst: np.ndarray,
+    n_nodes: int,
+    *,
+    name: str = "graph",
+    ell_cap: "int | None" = 128,
+    symmetrize: bool = True,
+    layout: "str | object" = "ell-tail",   # kind, "auto", or a LayoutPlan
+    reorder: str = "identity",
+    seed: int = 0,
+) -> Graph:
+    """Build a Graph from an edge list via the staged pipeline: self loops
+    and duplicate edges removed (``ingest.normalize``), then reorder, plan
+    and assembly (DESIGN.md §8). The defaults reproduce the historical
+    single-layout construction."""
+    from repro_torch.graphs import ingest, layout as layout_mod
+
+    return layout_mod.run_pipeline(
+        ingest.from_arrays(src, dst, n_nodes, name=name),
+        symmetrize=symmetrize, reorder=reorder, seed=seed, layout=layout,
+        ell_cap=ell_cap)

@@ -1,10 +1,10 @@
 // Shared row machinery of the row kernels (mex_window, conflict,
-// fused_compact, jpl_prio, frontier): a group of LPR = 2^lpr_log2 lanes
-// (1..32) owns one row, the lanes stride over the row's entries, and an
-// XOR-shuffle reduction combines their partial results. Groups never
-// straddle a warp (LPR divides 32 and the block size is a multiple of 32),
-// so every lane of a warp takes part in each shuffle, also lanes past the
-// last row.
+// fused_compact, fused_step, jpl_prio, frontier): a group of
+// LPR = 2^lpr_log2 lanes (1..32) owns one row, the lanes stride over the
+// row's entries, and an XOR-shuffle reduction combines their partial
+// results. Groups never straddle a warp (LPR divides 32 and the block size
+// is a multiple of 32), so every lane of a warp takes part in each shuffle,
+// also lanes past the last row.
 #pragma once
 
 #include <cuda_runtime.h>

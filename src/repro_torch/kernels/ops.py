@@ -17,6 +17,7 @@ from repro_torch.kernels.frontier import (frontier_probe_cuda,
                                           frontier_probe_plain)
 from repro_torch.kernels.fused_compact import (fused_compact_cuda,
                                                fused_compact_plain)
+from repro_torch.kernels.fused_step import fused_step_cuda, fused_step_plain
 from repro_torch.kernels.jpl_prio import jpl_extrema_cuda, jpl_extrema_plain
 from repro_torch.kernels.mex_window import mex_window_cuda, mex_window_plain
 
@@ -70,6 +71,16 @@ def fused_compact(nc, npr, nbr_ids, base, cu, pu, ids, active, pending,
     return fn(nc, npr, nbr_ids, base, cu, pu, ids, active, pending,
               extra_forb, hub_lose, window, capacity=capacity,
               n_sentinel=n_sentinel)
+
+
+def fused_step(nc, npr, nbr_ids, base, cu, pu, ids, pending, extra_forb,
+               window: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row ``(lose, first)`` from one tile: the conflict flag of the
+    pending rows and the first free window index, -1 when the window is
+    full; ``extra_forb`` (R, W) bool or None (see ``kernels/fused_step.py``)."""
+    fn = fused_step_cuda if _on_cuda(nc) else fused_step_plain
+    return fn(nc, npr, nbr_ids, base, cu, pu, ids, pending, extra_forb,
+              window)
 
 
 def jpl_extrema(npr: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

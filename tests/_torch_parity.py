@@ -1,12 +1,15 @@
-"""Shared check of the port's engine against ``repro``'s: the same
+"""Shared checks of the port's engine against ``repro``'s: the same
 registry graph through ``repro.core.color(impl="jnp")`` and
-``repro_torch.color(device="cpu")`` gives the same ``ColoringResult``."""
+``repro_torch.color(device="cpu")`` gives the same ``ColoringResult``; the
+port's distributed Pipe on S CPU shards gives ``repro``'s host-engine
+result on ``repro``'s partitioned graph."""
 import numpy as np
 import torch
 
 import repro.core as jcore
 import repro_torch
 from repro.graphs import get_dataset as jget
+from repro.graphs.partition import prepare_partition as jprepare_partition
 from repro.graphs.layout import LAYOUT_KINDS
 from repro_torch.graphs import get_dataset as tget
 
@@ -28,3 +31,41 @@ def assert_same_coloring(name, layout, mode, fused, scale=0.02):
     assert (got.n_colors, got.iterations, got.mode_trace, got.counts) == \
         (want.n_colors, want.iterations, want.mode_trace, want.counts)
     repro_torch.verify_coloring(tg, got.colors)
+
+
+#: (algo, fused) of the distributed colorings: ipgc fused and two-phase,
+#: spec-greedy, jpl
+DIST_ALGOS = [("ipgc", True), ("ipgc", False), ("spec-greedy", None),
+              ("jpl", None)]
+_FIELDS = ("n_colors", "iterations", "mode_trace", "counts")
+
+
+def _fields(r):
+    return tuple(getattr(r, f) for f in _FIELDS)
+
+
+def assert_same_dist_coloring(name, n_shards, algo, fused, scale=0.01):
+    """``color_distributed(devices=["cpu"] * S)`` equals
+    ``repro.core.color(g2, fused=..., outline=False)`` on ``repro``'s
+    partitioned graph (colors mapped back, ``tests/test_distributed.py``'s
+    contract); at S = 1 also ``repro.core.color_distributed`` itself, with
+    its exchange trace and bytes."""
+    jg = jget(name, scale=scale, layout="ell-tail")
+    tg = tget(name, scale=scale, layout="ell-tail")
+    got = repro_torch.color_distributed(tg, devices=["cpu"] * n_shards,
+                                        algo=algo, fused=fused)
+    jg2, relabel = jprepare_partition(jg, n_shards)
+    want = jcore.color(jg2, algo=algo, outline=False,
+                       fused=True if fused is None else fused)
+    np.testing.assert_array_equal(got.colors,
+                                  want.colors[relabel[:jg.n_nodes]])
+    assert got.colors.dtype == want.colors.dtype
+    assert _fields(got) == _fields(want)
+    repro_torch.verify_coloring(tg, got.colors)
+    if n_shards == 1:
+        ref = jcore.color_distributed(jg, n_shards=1, algo=algo, fused=fused)
+        np.testing.assert_array_equal(got.colors, ref.colors)
+        assert _fields(got) == _fields(ref)
+        assert (got.exchange_trace, got.exchange_bytes,
+                got.host_dispatches) == \
+            (ref.exchange_trace, ref.exchange_bytes, ref.host_dispatches)

@@ -16,6 +16,7 @@ from repro_torch.kernels.compact import compact_plain
 from repro_torch.kernels.conflict import conflict_plain
 from repro_torch.kernels.frontier import frontier_probe_plain
 from repro_torch.kernels.fused_compact import fused_compact_plain
+from repro_torch.kernels.fused_step import fused_step_plain
 from repro_torch.kernels.jpl_prio import jpl_extrema_plain
 from repro_torch.kernels.mex_window import mex_window_plain
 
@@ -171,3 +172,59 @@ def test_card_bfs_equals_cpu(dev, mode):
     np.testing.assert_array_equal(a.dist, b.dist)
     assert (a.levels, a.mode_trace) == (b.levels, b.mode_trace)
     np.testing.assert_array_equal(a.dist, bfs_reference(g, 0))
+
+
+@pytest.mark.parametrize("r,k,w", [(0, 8, 32), (1, 1, 32), (7, 8, 128),
+                                   (257, 40, 256), (3000, 128, 32),
+                                   (100, 3, 200)])
+@pytest.mark.parametrize("hub", [False, True])
+def test_fused_step_matches_plain(dev, r, k, w, hub):
+    rng = np.random.default_rng(r * 7 + k + w + hub)
+    nc = rng.integers(-2, 300, size=(r, k)).astype(np.int32)
+    npr = rng.integers(-1, 100, size=(r, k)).astype(np.int32)
+    nid = rng.integers(0, r + 1, size=(r, k)).astype(np.int32)
+    base = (rng.integers(0, 4, size=r) * w).astype(np.int32)
+    cu = rng.integers(-2, 300, size=r).astype(np.int32)
+    pu = rng.integers(0, 100, size=r).astype(np.int32)
+    ids = np.arange(r, dtype=np.int32)
+    pending = (rng.random(r) < 0.8) & (cu >= 0)
+    extra = None
+    if hub:
+        extra = rng.random((r, w)) < 0.25
+        extra[::3] = True                  # exhausted windows: first = -1
+    case = [_t(a, dev) for a in (nc, npr, nid, base, cu, pu, ids, pending,
+                                 extra)]
+    before = _build.KERNEL_LAUNCHES["fused_step"]
+    got = ops.fused_step(*case, w)
+    want = fused_step_plain(*case, w)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # zero rows launch nothing
+    assert _build.KERNEL_LAUNCHES["fused_step"] == before + (r > 0)
+    if hub and r:
+        assert (got[1][::3] == -1).all()
+
+
+@pytest.mark.parametrize("algo,fused", [("ipgc", True), ("ipgc", False),
+                                        ("spec-greedy", None),
+                                        ("jpl", None)])
+def test_card_dist_coloring_equals_cpu(dev, algo, fused):
+    """Four shards on one card equal four CPU shards and the host engine
+    on the partitioned graph; fused runs launch ``fused_step``."""
+    g = repro_torch.get_dataset("kron_g500-logn21_s", scale=0.05,
+                                layout="ell-tail", ell_cap=128)
+    before = _build.KERNEL_LAUNCHES["fused_step"]
+    a = repro_torch.color_distributed(g, devices=[dev] * 4, algo=algo,
+                                      fused=fused)
+    launched = _build.KERNEL_LAUNCHES["fused_step"] - before
+    b = repro_torch.color_distributed(g, devices=["cpu"] * 4, algo=algo,
+                                      fused=fused)
+    g2, relabel = repro_torch.exec.default_session(dev).partition(g, 4)
+    h = repro_torch.color(g2, algo=algo,
+                          fused=True if fused is None else fused)
+    for r in (b, h):
+        np.testing.assert_array_equal(
+            a.colors, r.colors if r is b else r.colors[relabel[:g.n_nodes]])
+        assert (a.iterations, a.mode_trace, a.counts) == \
+            (r.iterations, r.mode_trace, r.counts)
+    repro_torch.verify_coloring(g, a.colors)
+    assert (launched > 0) == (algo != "jpl" and fused is not False)

@@ -1,0 +1,12 @@
+"""Whole distributed colorings of the port on the CPU against ``repro``
+(``_torch_parity.assert_same_dist_coloring``) on hollywood (hubs) at
+scale 0.01: ipgc fused and two-phase, spec-greedy and jpl, S in
+{1, 2, 4, 8}. Exact, field for field."""
+import pytest
+from _torch_parity import DIST_ALGOS, assert_same_dist_coloring
+
+
+@pytest.mark.parametrize("algo,fused", DIST_ALGOS)
+@pytest.mark.parametrize("n_shards", [1, 2, 4, 8])
+def test_dist_coloring_matches_reference(n_shards, algo, fused):
+    assert_same_dist_coloring("hollywood-2009_s", n_shards, algo, fused)

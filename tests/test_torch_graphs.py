@@ -116,14 +116,16 @@ def _run_isolated(code: str) -> str:
 
 
 def test_port_never_imports_jax():
-    """``import repro_torch`` and a CPU coloring leave JAX (and the JAX
-    package) out of ``sys.modules``."""
+    """``import repro_torch``, a CPU coloring and a CPU distributed
+    coloring leave JAX (and the JAX package) out of ``sys.modules``."""
     out = _run_isolated("""
         import sys
         import repro_torch
         g = repro_torch.get_dataset("kron_g500-logn21_s", scale=0.01,
                                     layout="ell-tail", ell_cap=128)
         r = repro_torch.color(g, device="cpu", fused=True)
+        repro_torch.verify_coloring(g, r.colors)
+        r = repro_torch.color_distributed(g, devices=["cpu"] * 2)
         repro_torch.verify_coloring(g, r.colors)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
