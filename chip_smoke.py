@@ -11,7 +11,12 @@ each failing the script on any error:
 2. kernels: each hand-written kernel against its plain PyTorch version
    on the card, at the shapes of the main paths and at edge cases,
    exactly; their times beside the plain version's, the byte bound and,
-   where one PyTorch call computes the same function, that call;
+   where one PyTorch call computes the same function, that call. The
+   kernels that gather the neighbours themselves (``conflict``,
+   ``fused_compact``) are also timed against the gathers their earlier
+   signature needed (``gather_ms``), and at the items block of the kron
+   sparse steps' most-used capacity bucket (recorded during the ipgc runs
+   of phase 3);
 3. path: on kron_g500-logn21_s at scale 32 (2**21 nodes, ell-tail, hubs)
    and europe_osm_s at scale 127 (50.8M nodes, pure-ell), the hybrid Pipe
    (``repro_torch.color``) with ipgc two-phase and fused, jpl and
@@ -44,6 +49,7 @@ The line before the last is the kernels' JSON summary; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -53,8 +59,9 @@ import time
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "src"))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, os.path.join(ROOT, "tests"))
 
 import repro_torch  # noqa: E402
 from repro_torch.algos import get_algorithm  # noqa: E402
@@ -71,12 +78,16 @@ from repro_torch.core.worklist import (Worklist,  # noqa: E402
 from repro_torch.exec import default_session  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.compact import compact_plain  # noqa: E402
-from repro_torch.kernels.conflict import conflict_plain  # noqa: E402
+from repro_torch.kernels.conflict import (conflict_rows_plain,  # noqa: E402
+                                          gather_rows)
 from repro_torch.kernels.frontier import frontier_probe_plain  # noqa: E402
-from repro_torch.kernels.fused_compact import fused_compact_plain  # noqa: E402
+from repro_torch.kernels.fused_compact import \
+    fused_compact_rows_plain  # noqa: E402
 from repro_torch.kernels.fused_step import fused_step_plain  # noqa: E402
 from repro_torch.kernels.jpl_prio import jpl_extrema_plain  # noqa: E402
 from repro_torch.kernels.mex_window import mex_window_plain  # noqa: E402
+
+from _gather_cases import gather_case  # noqa: E402
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the non-tensor-core
 #: 32-bit vector rate (67 TFLOP/s) as the rate of the kernels' integer work
@@ -191,28 +202,7 @@ def edge_cases(dev) -> None:
                     assert_equal(ops.mex_window(t(nc), t(base), t(e), w),
                                  mex_window_plain(t(nc), t(base), t(e), w),
                                  f"mex_window r={r} k={k} w={w}")
-            npr = rng.integers(-1, 100, size=(r, k)).astype(np.int32)
-            nid = rng.integers(0, r + 1, size=(r, k)).astype(np.int32)
-            cu = rng.integers(-2, 300, size=r).astype(np.int32)
-            pu = rng.integers(0, 100, size=r).astype(np.int32)
-            ids = np.arange(r, dtype=np.int32)
-            args = [t(a) for a in (nc, npr, nid, cu, pu, ids)]
-            assert_equal(ops.conflict(*args), conflict_plain(*args),
-                         f"conflict r={r} k={k}")
-            for hub in (False, True):
-                for act_p in (0.0, 0.8, 1.0):
-                    act = rng.random(r) < act_p
-                    case = [t(a) for a in (
-                        nc, npr, nid, base, cu, pu, ids, act,
-                        act & (cu >= 0), extra if hub else None,
-                        (rng.random(r) < 0.1) & act if hub else None)]
-                    for cap in (r, max(r // 3, 1), r + 5):
-                        assert_equal(
-                            ops.fused_compact(*case, w, capacity=cap,
-                                              n_sentinel=r),
-                            fused_compact_plain(*case, w, capacity=cap,
-                                                n_sentinel=r),
-                            f"fused_compact r={r} k={k} hub={hub} cap={cap}")
+    gather_edge_cases(dev)
     for n in (1, 5, 2047, 2048, 2049, 100_003):
         for density in (0.0, 0.3, 1.0):
             mask = t(rng.random(n) < density)
@@ -285,29 +275,233 @@ def edge_cases(dev) -> None:
     log(phase="kernels.edge_cases", equal=True)
 
 
+def gather_edge_cases(dev) -> None:
+    """conflict and fused_compact, which gather the neighbours themselves:
+    rows None or sparse with sentinels, hub and no-hub, rows of length 0,
+    < K and K, R = 0, empty/full activity, truncating and padding
+    capacities, 16-byte and one-entry ELL loads."""
+    def t(a):
+        return None if a is None else torch.from_numpy(np.asarray(a)).to(dev)
+
+    conflict_names = ("colors", "priority", "ell", "rows", "cu", "pu", "ids",
+                      "newly")
+    fused_names = ("colors", "priority", "ell", "rows", "base", "cu", "pu",
+                   "ids", "active", "pending", "hub_forb", "hub_lose",
+                   "hub_slot")
+    for rg in (0, 1, 7, 257, 3000):
+        for k in (1, 3, 8, 40, 128):
+            for w in (1, 32, 128, 256):
+                for sparse in (False, True):
+                    for hub in (False, True):
+                        c = gather_case(rg + k + w + sparse + hub, rg, k,
+                                        sparse=sparse, hub=hub, window=w,
+                                        lo=5)
+                        r = len(c["cu"])
+                        what = (f"rg={rg} k={k} w={w} sparse={sparse} "
+                                f"hub={hub}")
+                        args = [t(c[n]) for n in conflict_names]
+                        assert_equal(ops.conflict(*args),
+                                     conflict_rows_plain(*args),
+                                     f"conflict {what}")
+                        for act_p in (0.0, 1.0, None):
+                            if act_p is not None:
+                                c["active"] = np.full(r, act_p > 0)
+                                c["pending"] = c["active"] & (c["cu"] >= 0)
+                            case = [t(c[n]) for n in fused_names]
+                            for cap in (max(r, 1), max(r // 3, 1), r + 5):
+                                assert_equal(
+                                    ops.fused_compact(*case, w, capacity=cap,
+                                                      n_sentinel=c["n"]),
+                                    fused_compact_rows_plain(
+                                        *case, w, capacity=cap,
+                                        n_sentinel=c["n"]),
+                                    f"fused_compact {what} cap={cap}")
+                        if rg > 1 and k % 4 == 0:
+                            # an unaligned ELL tile: the one-entry loads
+                            flat = t(c["ell"]).reshape(-1)
+                            x = torch.empty(flat.numel() + 1,
+                                            dtype=flat.dtype, device=dev)
+                            x[1:] = flat
+                            args[2] = case[2] = x[1:].view(rg, k)
+                            assert_equal(ops.conflict(*args),
+                                         conflict_rows_plain(*args),
+                                         f"conflict unaligned {what}")
+                            assert_equal(
+                                ops.fused_compact(*case, w, capacity=r,
+                                                  n_sentinel=c["n"]),
+                                fused_compact_rows_plain(
+                                    *case, w, capacity=r,
+                                    n_sentinel=c["n"]),
+                                f"fused_compact unaligned {what}")
+
+
+class Recorder:
+    """Wraps ``ops.<name>`` while active: counts its calls by row count
+    and keeps the arguments of the first call at each row count (the
+    operands the main path hands the kernel, as they were)."""
+
+    def __init__(self, name: str, sparse_only: bool = False):
+        self.name, self.sparse_only = name, sparse_only
+        self.calls: dict[int, int] = {}
+        self.args: dict[int, tuple] = {}
+
+    def __enter__(self):
+        real = self.real = getattr(ops, self.name)
+
+        def spy(*args, **kw):
+            if not (self.sparse_only and args[3] is None):
+                r = args[4].shape[0]
+                self.calls[r] = self.calls.get(r, 0) + 1
+                self.args.setdefault(r, (args, kw))
+            return real(*args, **kw)
+
+        setattr(ops, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(ops, self.name, self.real)
+
+    def most_used(self) -> tuple[int, int, tuple]:
+        """(rows, calls, (args, kwargs)) of the most-called row count."""
+        r = max(self.calls, key=lambda x: (self.calls[x], x))
+        return r, self.calls[r], self.args[r]
+
+
 def main_path_operands(ig, window: int):
     """The operands the dense steps hand the kernels, taken from the state
-    two fused dense iterations into a run on ``ig``."""
+    two fused dense iterations into a run on ``ig``: ``conflict``'s and
+    ``fused_compact``'s as the two-phase and fused dense steps pass them
+    from that state (recorded), the others rebuilt as the steps build
+    them."""
     colors, base, wl = init_ipgc_state(ig)
     for _ in range(2):
         colors, base, wl = ipgc.fused_dense_step(ig, colors, base, wl,
                                                  window=window)
-    n = ig.n_nodes
-    hubs = ig.n_hub > 0
-    row_ids = torch.arange(n, dtype=torch.int32, device=ig.device)
-    nc = colors[ig.ell_idx]
-    npr = ig.priority[ig.ell_idx]
-    cu = colors[:n]
-    pending = wl.mask & (cu >= 0)
-    extra = hub_lose = None
-    if hubs:
+    with Recorder("conflict") as rec_c:
+        ipgc.dense_step(ig, colors, base, wl, window=window)
+    with Recorder("fused_compact") as rec_f:
+        ipgc.fused_dense_step(ig, colors, base, wl, window=window)
+    extra = None
+    if ig.n_hub > 0:
         extra = ipgc._hub_forbidden(ig, colors, base, window)[ig.hub_slot]
-        pending_full = torch.cat([pending, pending.new_zeros(1)])
-        hub_lose = ipgc._hub_lose(ig, colors, pending_full)[ig.hub_slot]
-    return dict(nc=nc, npr=npr, ids=row_ids, cu=cu, pu=ig.priority[:n],
-                base=base, active=wl.mask, pending=pending, extra=extra,
-                hub_lose=hub_lose, capacity=wl.capacity, n=n,
-                window=window)
+    return dict(nc=colors[ig.ell_idx], base=base, extra=extra,
+                active=wl.mask, capacity=wl.capacity, n=ig.n_nodes,
+                ids=torch.arange(ig.n_nodes, dtype=torch.int32,
+                                 device=ig.device),
+                conflict=rec_c.most_used()[2],
+                fused_compact=rec_f.most_used()[2])
+
+
+def _unique(x: torch.Tensor) -> int:
+    return int(torch.unique(x).numel())
+
+
+def conflict_work(colors, priority, ell_idx, rows, cu, pu, ids,
+                  newly) -> tuple[int, int]:
+    """Bytes and operations the conflict kernel needs on these inputs,
+    each read once: ``newly`` (and ``rows``) of every row, ``cu`` of the
+    newly colored graph rows, ``pu`` and ``ids`` of those with a color,
+    4 bytes per real ELL entry of those (the padding is never read), the
+    distinct colors they touch, the distinct priorities at same-color
+    entries, and the bool output."""
+    pad = colors.shape[0] - 1
+    nbr, ok = gather_rows(ell_idx, rows, pad)
+    r = cu.shape[0]
+    newly_ok = newly & ok
+    work = newly_ok & (cu >= 0)
+    real = (nbr != pad) & work[:, None]
+    same = real & (colors[nbr] == cu[:, None])
+    n_real, n_same = int(real.sum()), int(same.sum())
+    nbytes = (r + (0 if rows is None else 4 * r) + 4 * int(newly_ok.sum())
+              + 8 * int(work.sum()) + 4 * n_real + 4 * _unique(nbr[real])
+              + 4 * _unique(nbr[same]) + r)
+    return nbytes, n_real + 4 * n_same
+
+
+def fused_compact_work(colors, priority, ell_idx, rows, base, cu, pu, ids,
+                       active, pending, hub_forb, hub_lose, hub_slot,
+                       window, *, capacity, n_sentinel) -> tuple[int, int]:
+    """Bytes and operations the fused_compact call needs on these inputs,
+    each read once: ``base``, ``cu``, ``active``, ``pending`` (and
+    ``rows``) of every row; ``pu`` of the pending colored rows and ``ids``
+    of those and of the emitted rows; for the working (active or pending)
+    graph rows 4 bytes per real ELL entry, the distinct colors they touch,
+    the distinct priorities at same-color entries of pending rows, and
+    each hub row's slot, W bytes of its forbidden row and its lose flag;
+    the outputs (new color, base and still per row, the items, the
+    count)."""
+    pad = colors.shape[0] - 1
+    nbr, ok = gather_rows(ell_idx, rows, pad)
+    r = cu.shape[0]
+    work = (active | pending) & ok
+    check = pending & ok & (cu >= 0)
+    still = fused_compact_rows_plain(
+        colors, priority, ell_idx, rows, base, cu, pu, ids, active, pending,
+        hub_forb, hub_lose, hub_slot, window, capacity=capacity,
+        n_sentinel=n_sentinel)[2]
+    real = (nbr != pad) & work[:, None]
+    same = real & check[:, None] & (colors[nbr] == cu[:, None])
+    n_real, n_same = int(real.sum()), int(same.sum())
+    nbytes = (r * 10 + (0 if rows is None else 4 * r) + 4 * int(check.sum())
+              + 4 * int((check | still).sum()) + 4 * n_real
+              + 4 * _unique(nbr[real]) + 4 * _unique(nbr[same])
+              + r * 9 + capacity * 4 + 4)
+    if hub_forb is not None:
+        n_hub = hub_forb.shape[0] - 1
+        slot, _ = gather_rows(hub_slot[:, None], rows, n_hub)
+        hub_rows = work & (slot[:, 0] < n_hub)
+        nbytes += 4 * int(work.sum()) + int(hub_rows.sum()) * (window + 1)
+    return nbytes, 4 * n_real + 4 * n_same
+
+
+def old_gathers(args, fused: bool):
+    """The PyTorch gathers the earlier, pre-gathered signature needed on
+    these operands, as three callables: ``colors[ell]`` and
+    ``priority[ell]`` over the (R, K) neighbour-id tile; for
+    fused_compact's hub variant the (R, W) forbidden rows and the (R,)
+    lose flags at each row's hub slot (None without hubs); and the build
+    of that tile, which the sparse steps made (``ell_rows``; None for the
+    dense steps, whose tile is the graph's)."""
+    colors, priority, ell_idx, rows = args[:4]
+    pad = colors.shape[0] - 1
+    nbr = ell_idx if rows is None else gather_rows(ell_idx, rows, pad)[0]
+    hub = None
+    if fused and args[10] is not None:
+        hub_forb, hub_lose, hub_slot = args[10:13]
+        slot = (hub_slot if rows is None
+                else gather_rows(hub_slot[:, None], rows,
+                                 hub_forb.shape[0] - 1)[0][:, 0])
+
+        def hub():
+            return hub_forb[slot], hub_lose[slot]
+
+    def ell_rows():
+        return gather_rows(ell_idx, rows, pad)[0]
+
+    return ((lambda: (colors[nbr], priority[nbr])), hub,
+            None if rows is None else ell_rows)
+
+
+def gather_row(name, args, kw, shape: dict, reps: int) -> dict:
+    """A gathering kernel's row at one shape: equality with the plain
+    twin, kernel / plain times, the bound on these inputs and the time of
+    the earlier signature's gathers (``gather_ms``: the neighbour tiles'
+    ``tile_gather_ms`` plus the hub rows' ``hub_gather_ms``)."""
+    fused = name == "fused_compact"
+    kernel = getattr(ops, name)
+    plain = fused_compact_rows_plain if fused else conflict_rows_plain
+    work = fused_compact_work if fused else conflict_work
+    nbytes, ops_ = work(*args, **kw)
+    row = kernel_row(name, lambda: kernel(*args, **kw),
+                     lambda: plain(*args, **kw), nbytes, ops_, shape, None,
+                     reps)
+    tiles, hub, ell_rows = old_gathers(args, fused)
+    row["tile_gather_ms"] = cuda_ms(tiles, reps)
+    row["hub_gather_ms"] = None if hub is None else cuda_ms(hub, reps)
+    row["gather_ms"] = row["tile_gather_ms"] + (row["hub_gather_ms"] or 0.0)
+    if ell_rows is not None:
+        row["ell_rows_ms"] = cuda_ms(ell_rows, reps)
+    return row
 
 
 def bottomup_frontier(ig, levels: int = 2) -> torch.Tensor:
@@ -346,17 +540,12 @@ def kernel_row(name, kernel, plain, nbytes, ops_, shape: dict,
 def kernel_phase(ig, window: int, reps: int = 10) -> dict:
     """Each kernel at the kron main paths' shapes (the IPGC dense step, the
     JPL dense round, a bottom-up BFS level): equality with the plain
-    version, then kernel / plain / library times and the bound."""
+    version, then kernel / plain / library times and the bound; for
+    ``conflict`` and ``fused_compact`` also the time of the gathers their
+    earlier signature needed (``gather_ms``)."""
     o = main_path_operands(ig, window)
     r, k = o["nc"].shape
     w = window
-    colored = o["cu"] >= 0
-    same = (o["nc"] == o["cu"][:, None]) & colored[:, None]
-    n_colored = int(colored.sum())
-    n_same = int(same.sum())
-    work = o["active"] | o["pending"]
-    n_work = int(work.sum())
-    n_same_pend = int((same & (o["pending"] & colored)[:, None]).sum())
     mask = o["active"]
     shape = dict(rows=r, k=k, window=w, hubs=o["extra"] is not None)
     rows = {}
@@ -371,32 +560,18 @@ def kernel_phase(ig, window: int, reps: int = 10) -> dict:
           nbytes=r * k * 4 + r * 4 + (0 if o["extra"] is None else r * w)
           + r * 4,
           ops_=r * k * 4)
-    entry("conflict",
-          lambda: ops.conflict(o["nc"], o["npr"], ig.ell_idx, o["cu"],
-                               o["pu"], o["ids"]),
-          lambda: conflict_plain(o["nc"], o["npr"], ig.ell_idx, o["cu"],
-                                 o["pu"], o["ids"]),
-          nbytes=r * 12 + r + n_colored * k * 4 + n_same * 8,
-          ops_=n_colored * k + n_same * 4)
+    for name in ("conflict", "fused_compact"):
+        args, kw = o[name]
+        rows[name] = gather_row(name, args, kw, shape, reps)
     entry("compact",
           lambda: ops.compact(mask, o["capacity"], o["n"]),
           lambda: compact_plain(mask, o["capacity"], o["n"]),
           nbytes=r + o["capacity"] * 4 + 4, ops_=r,
           library=lambda: torch.nonzero(mask))
-    fused_args = (o["nc"], o["npr"], ig.ell_idx, o["base"], o["cu"],
-                  o["pu"], o["ids"], o["active"], o["pending"], o["extra"],
-                  o["hub_lose"], w)
-    fused_kw = dict(capacity=o["capacity"], n_sentinel=o["n"])
-    entry("fused_compact",
-          lambda: ops.fused_compact(*fused_args, **fused_kw),
-          lambda: fused_compact_plain(*fused_args, **fused_kw),
-          nbytes=r * 18 + r * 9 + o["capacity"] * 4 + n_work * k * 4
-          + n_same_pend * 8 + (0 if o["extra"] is None else n_work * w + r),
-          ops_=n_work * k * 4)
     # the JPL dense round's tile at round 0, every node pending
     pr = round_hash(o["ids"], torch.zeros((), dtype=torch.int32,
                                           device=ig.device))
-    del o, fused_args
+    del o
     npr = torch.cat([pr, pr.new_full((1,), -1)])[ig.ell_idx]
     entry("jpl_extrema", lambda: ops.jpl_extrema(npr),
           lambda: jpl_extrema_plain(npr),
@@ -481,21 +656,52 @@ COLORINGS = (("ipgc", False, ("mex_window", "conflict", "compact")),
              ("spec-greedy", None, ("fused_compact",)))
 
 
-def path_phase(g, build_s: float) -> list[dict]:
+#: the gathering kernel whose sparse-shape row each ipgc run records
+SPARSE_ROWS = {("ipgc", False): "conflict", ("ipgc", True): "fused_compact"}
+
+
+def sparse_row(rec: Recorder, g, reps: int) -> dict:
+    """The recorded kernel at the items block of the sparse steps'
+    most-used capacity bucket in the run, as the step handed it over."""
+    c, n_calls, (args, kw) = rec.most_used()
+    window = args[13] if rec.name == "fused_compact" else None
+    shape = dict(rows=c, k=g.ell_width, window=window,
+                 hubs=rec.name == "fused_compact" and args[10] is not None,
+                 calls_at_this_capacity=n_calls,
+                 sparse_calls=sum(rec.calls.values()),
+                 calls_by_capacity=rec.calls)
+    row = gather_row(rec.name, args, kw, shape, reps)
+    return {key: row[key] for key in (
+        "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "gather_ms", "tile_gather_ms", "hub_gather_ms", "ell_rows_ms")}
+
+
+def path_phase(g, build_s: float, rows: "dict | None" = None,
+               reps: int = 10) -> list[dict]:
     """Every coloring path through ``repro_torch.color`` on ``g``; returns
     the kernel launches of each run. The ipgc and jpl Pipes are replayed
-    with the sync check."""
+    with the sync check. With ``rows`` (the kernels line's rows), the ipgc
+    runs record the sparse steps' calls of ``conflict`` and
+    ``fused_compact`` and time each at its most-used capacity bucket."""
     launches = []
     replay_ig = repro_torch.prepare(g)
     for algo, fused, need in COLORINGS:
         alg = get_algorithm(algo)
+        name = SPARSE_ROWS.get((algo, fused)) if rows is not None else None
+        rec = Recorder(name, sparse_only=True) if name else None
         start_counts()
-        with ipgc.LAUNCH_COUNTS.scope() as passes:
+        with (rec or contextlib.nullcontext()), \
+                ipgc.LAUNCH_COUNTS.scope() as passes:
             t0 = time.perf_counter()
             r = repro_torch.color(g, algo=algo, fused=fused)
             wall = time.perf_counter() - t0
             pass_counts = passes.as_dict()
         counts = _build.KERNEL_LAUNCHES.as_dict()
+        if rec is not None:
+            rows[name]["sparse"] = sparse_row(rec, g, reps)
+            log(phase="kernels.sparse_shape", name=name,
+                **rows[name]["sparse"])
+        del rec
         what = f"{g.name} {algo} fused={fused}"
         missing = [k for k in need if counts[k] == 0]
         if missing:
@@ -781,7 +987,7 @@ def main() -> int:
     del kron_ig
     torch.cuda.empty_cache()
 
-    runs = path_phase(kron, kron_s) + bfs_phase(kron)
+    runs = path_phase(kron, kron_s, rows) + bfs_phase(kron)
     baselines_phase(kron)
     default_session().cache.clear()
     torch.cuda.empty_cache()

@@ -307,7 +307,7 @@ def _dense_assign_local(sh: Shard, colors, base_l, active, window: int):
 def _dense_resolve_local(sh: Shard, colors2, active, newly):
     ig = sh.ig
     n = ig.n_nodes
-    lose = ipgc._lose_rows(ig, ig.ell_idx, sh.row_ids, colors2, newly)
+    lose = ipgc._lose_rows(ig, None, sh.row_ids, colors2, newly)
     if ig.n_hub > 0:
         # a local scatter: owned slots only read owned tail_src rows
         newly_g = _padded(sh, newly, n + 1)
@@ -455,7 +455,9 @@ def _sparse_resolve_local(sh: Shard, colors2, items_l, r: _SparseRows,
                           newly):
     ig = sh.ig
     n = ig.n_nodes
-    lose = ipgc._lose_rows(ig, r.ell_rows, r.ids, colors2, newly)
+    # the shard's ELL rows of the items, pad lanes past its block
+    rows = torch.where(r.valid, r.local, sh.hi - sh.lo).to(torch.int32)
+    lose = ipgc._lose_rows(ig, rows, r.ids, colors2, newly)
     if ig.n_hub > 0:
         newly_full = ipgc._set_rows(
             torch.zeros(n + 1, dtype=torch.bool, device=sh.device),

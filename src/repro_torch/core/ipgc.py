@@ -210,7 +210,8 @@ def _has_hubs(ig: IPGCGraph, force_hub: "bool | None") -> bool:
 # --- accounting ----------------------------------------------------------------
 # Counted when a step runs. GATHER_COUNTS: ELL- or edge-shaped gathers of
 # the mutable colors array (the fused steps make one per iteration, the
-# two-phase steps two). LAUNCH_COUNTS: logical device passes per step —
+# two-phase steps two; the conflict and fused_compact kernels make theirs
+# inside the kernel, counted at the call). LAUNCH_COUNTS: logical device passes per step —
 # mex/conflict/compact for the three passes of a two-phase step, fused for
 # a one-pass fused step (DESIGN.md §10). The CUDA launches behind them are
 # counted per kernel in ``kernels.ops.KERNEL_LAUNCHES``.
@@ -223,6 +224,13 @@ def _gather_neighbor_colors(colors: torch.Tensor,
                             rows: torch.Tensor) -> torch.Tensor:
     GATHER_COUNTS["neighbor_colors"] += 1
     return colors[rows]
+
+
+def _count_kernel_gather() -> None:
+    """Count the neighbour-color gather that ``conflict`` and
+    ``fused_compact`` make inside the kernel: still the algorithm's
+    gather, at the reference's call sites."""
+    GATHER_COUNTS["neighbor_colors"] += 1
 
 
 def _set_rows(x: torch.Tensor, rows: torch.Tensor,
@@ -303,30 +311,42 @@ def _mex_rows(nc: torch.Tensor, base_rows: torch.Tensor,
     return new_colors, new_base, active & has
 
 
-def _lose_rows(ig: IPGCGraph, ell_rows: torch.Tensor, row_ids: torch.Tensor,
-               colors: torch.Tensor, newly: torch.Tensor) -> torch.Tensor:
-    """Row u loses iff it conflicts (the ``conflict`` kernel). Only
+def _lose_rows(ig: IPGCGraph, rows: "torch.Tensor | None",
+               row_ids: torch.Tensor, colors: torch.Tensor,
+               newly: torch.Tensor) -> torch.Tensor:
+    """Row u loses iff it conflicts (the ``conflict`` kernel, which
+    gathers the neighbours of ``ig.ell_idx[rows]`` itself; ``rows`` None is
+    every ELL row, a row >= the ELL's row count is empty). Only
     newly-colored rows can conflict (mex excluded all surviving older
-    colors)."""
+    colors), and the kernel checks no other."""
     LAUNCH_COUNTS["conflict"] += 1
+    _count_kernel_gather()
     cu = colors[row_ids]
     pu = ig.priority[row_ids]
-    nc = _gather_neighbor_colors(colors, ell_rows)
-    npr = ig.priority[ell_rows]
-    return ops.conflict(nc, npr, ell_rows, cu, pu, row_ids) & newly
+    return ops.conflict(colors, ig.priority, ig.ell_idx, rows, cu, pu,
+                        row_ids, newly)
 
 
-def _fused_compact_rows(ig: IPGCGraph, nc, npr, nbr_ids, base_rows, cu, pu,
-                        ids, active, pending, extra_forb, hub_lose,
-                        window: int, capacity: int):
+def _fused_compact_rows(ig: IPGCGraph, colors, rows, base_rows, cu, pu,
+                        ids, active, pending, hub_tables, window: int,
+                        capacity: int):
     """One pass (DESIGN.md §10): resolve + windowed mex + new-color/base
-    selection + compacted worklist emission. ``ids`` is the emitted value,
-    so the dense caller passes row iota (emission == ``compact_mask``) and
-    the sparse caller its items block (emission == ``compact_items``).
-    Returns ``(new_colors, new_base, still, items, count)``."""
+    selection + compacted worklist emission, the neighbours of
+    ``ig.ell_idx[rows]`` gathered inside the ``fused_compact`` kernel
+    (``rows`` None is every ELL row, a row >= the ELL's row count is
+    empty). ``ids`` is the emitted value, so the dense caller passes row
+    iota (emission == ``compact_mask``) and the sparse caller its items
+    block (emission == ``compact_items``). ``hub_tables`` is None or the
+    ``(_hub_forbidden, _hub_lose)`` tables, which the kernel reads at each
+    row's hub slot. Returns ``(new_colors, new_base, still, items,
+    count)``."""
     LAUNCH_COUNTS["fused"] += 1
-    return ops.fused_compact(nc, npr, nbr_ids, base_rows, cu, pu, ids,
-                             active, pending, extra_forb, hub_lose, window,
+    _count_kernel_gather()
+    hub_forb, hub_lose = hub_tables or (None, None)
+    hub_slot = None if hub_tables is None else ig.hub_slot
+    return ops.fused_compact(colors, ig.priority, ig.ell_idx, rows,
+                             base_rows, cu, pu, ids, active, pending,
+                             hub_forb, hub_lose, hub_slot, window,
                              capacity=capacity, n_sentinel=ig.n_nodes)
 
 
@@ -434,7 +454,7 @@ def dense_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
     colors2 = torch.cat([new_c, colors[n:]])
 
     # --- resolve (uncolor exactly one endpoint per conflict edge) ---
-    lose = _lose_rows(ig, ig.ell_idx, row_ids, colors2, newly)
+    lose = _lose_rows(ig, None, row_ids, colors2, newly)
     if has_hubs:
         newly_full = torch.cat([newly, newly.new_zeros(1)])
         lose = lose | _hub_lose(ig, colors2, newly_full)[ig.hub_slot]
@@ -478,7 +498,7 @@ def sparse_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
     base2 = _set_rows_drop(base, target, new_base_rows)
 
     # --- resolve ---
-    lose = _lose_rows(ig, ell_rows, target, colors2, newly)
+    lose = _lose_rows(ig, items, target, colors2, newly)
     if has_hubs:
         newly_full = _set_rows(torch.zeros(n + 1, dtype=torch.bool,
                                            device=colors.device),
@@ -522,16 +542,15 @@ def fused_dense_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
     cu = colors[:n]
     pu = ig.priority[:n]
     pending = active & (cu >= 0)
-    nc = _gather_neighbor_colors(colors, ig.ell_idx)   # the one gather
-    npr = ig.priority[ig.ell_idx]
-    extra = hub_lose = None
+    hub_tables = None
     if _has_hubs(ig, force_hub):
-        extra = _hub_forbidden(ig, colors, base, window)[ig.hub_slot]
         pending_full = torch.cat([pending, pending.new_zeros(1)])
-        hub_lose = _hub_lose(ig, colors, pending_full)[ig.hub_slot]
+        hub_tables = (_hub_forbidden(ig, colors, base, window),
+                      _hub_lose(ig, colors, pending_full))
+    # the one gather, inside the kernel
     new_c, new_base, still, items, count = _fused_compact_rows(
-        ig, nc, npr, ig.ell_idx, base, cu, pu, row_ids, active, pending,
-        extra, hub_lose, window, wl.capacity)
+        ig, colors, None, base, cu, pu, row_ids, active, pending,
+        hub_tables, window, wl.capacity)
     colors2 = torch.cat([new_c, colors[n:]])
     return colors2, new_base, Worklist(mask=still, items=items, count=count)
 
@@ -549,25 +568,22 @@ def fused_sparse_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
     safe = torch.where(valid, items, 0)
     ids = torch.where(valid, items, n)
 
-    ell_rows = torch.where(valid[:, None], ig.ell_idx[safe], n)    # (C, K)
-    nc = _gather_neighbor_colors(colors, ell_rows)     # the one gather
-    npr = ig.priority[ell_rows]
     cu = torch.where(valid, colors[safe], PAD_COLOR)
     pu = ig.priority[ids]
     base_rows = base[safe]
     pending = valid & (cu >= 0)
-    extra = hub_lose = None
+    hub_tables = None
     if _has_hubs(ig, force_hub):
-        slot = ig.hub_slot[safe]
-        extra = _hub_forbidden(ig, colors, base, window)[slot]
         pending_full = _set_rows(torch.zeros(n + 1, dtype=torch.bool,
                                              device=colors.device),
                                  torch.where(pending, items, n), pending)
-        hub_lose = _hub_lose(ig, colors, pending_full)[slot] & valid
+        hub_tables = (_hub_forbidden(ig, colors, base, window),
+                      _hub_lose(ig, colors, pending_full))
 
+    # the one gather, inside the kernel
     new_c, new_base_rows, still, new_items, count = _fused_compact_rows(
-        ig, nc, npr, ell_rows, base_rows, cu, pu, ids, valid, pending,
-        extra, hub_lose, window, items.shape[0])
+        ig, colors, items, base_rows, cu, pu, ids, valid, pending,
+        hub_tables, window, items.shape[0])
 
     colors2 = _set_rows(colors, ids, torch.where(valid, new_c, PAD_COLOR))
     colors2[n:].fill_(PAD_COLOR)

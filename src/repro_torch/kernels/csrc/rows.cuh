@@ -4,7 +4,8 @@
 // row's entries, and an XOR-shuffle reduction combines their partial
 // results. Groups never straddle a warp (LPR divides 32 and the block size
 // is a multiple of 32), so every lane of a warp takes part in each shuffle,
-// also lanes past the last row.
+// also lanes past the last row. conflict and fused_compact walk the graph's
+// ELL rows themselves through the gathered-row reader at the end.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -90,6 +91,72 @@ __device__ __forceinline__ int reduce_min(int v, int lpr_log2) {
   for (int off = (1 << lpr_log2) >> 1; off > 0; off >>= 1)
     v = min(v, __shfl_xor_sync(kFull, v, off));
   return v;
+}
+
+// --- gathered rows -----------------------------------------------------------
+// The in-kernel-gather kernels (conflict, fused_compact) read a row's
+// neighbour ids straight from the graph's (Rg, K) ELL tile and load what
+// they need at each id themselves (colors[v], priority[v]). The layout
+// left-packs every ELL row: entry k of row r is neighbour k of r's sorted
+// CSR row and every later entry is the pad id N, so a row ends at its first
+// padding entry. T is int4 (four entries per 16-byte load: K % 4 == 0 and
+// a 16-byte aligned tile) or int (one entry per load).
+
+// Entries a lane group reads per pass over a gathered row.
+constexpr int kPassEntries = 32;
+
+// Lanes per row (log2) for rows of `width` loads of `per_load` entries:
+// as many as make one pass cover kPassEntries entries, fewer for short rows.
+inline int gather_lanes_log2(int width, int per_load) {
+  int l = 0;
+  while ((1 << l) < width && (per_load << (l + 1)) <= kPassEntries) ++l;
+  return l;
+}
+
+// Calls f(v) for a real entry v; returns true for a padding entry.
+template <typename F>
+__device__ __forceinline__ bool visit(int v, int pad, F& f) {
+  if (v == pad) return true;
+  f(v);
+  return false;
+}
+
+template <typename F>
+__device__ __forceinline__ bool visit(int4 e, int pad, F& f) {
+  bool saw = visit(e.x, pad, f);
+  saw = visit(e.y, pad, f) || saw;
+  saw = visit(e.z, pad, f) || saw;
+  return visit(e.w, pad, f) || saw;
+}
+
+// Calls f(v) for every neighbour id v of one left-packed ELL row (`row`
+// points at its first load; `width` loads per row) and stops at the row's
+// first padding entry. The lane group of 1 << lpr_log2 lanes owns the row:
+// each pass reads one load per lane, then one warp ballot tells every group
+// whether any of its lanes met padding, which ends that group's row. The
+// loop is warp-uniform (every lane takes each vote, also the lanes of rows
+// with nothing to do and of rows past the last), and the warp leaves it as
+// soon as all its groups are done. With `work` false nothing is read.
+template <typename T, typename F>
+__device__ __forceinline__ void for_each_neighbour(const T* __restrict__ row,
+                                                   bool work, int width,
+                                                   int pad, int lpr_log2,
+                                                   F&& f) {
+  const int lane = threadIdx.x & 31;
+  const int lpr = 1 << lpr_log2;
+  const int sub = lane & (lpr - 1);
+  const unsigned group = (lpr == 32 ? kFull : ((1u << lpr) - 1u))
+                         << (lane & ~(lpr - 1));
+  bool done = !work;
+  for (int first = 0; first < width; first += lpr) {
+    if (__all_sync(kFull, done)) break;
+    const int k = first + sub;
+    bool saw = false;
+    if (!done && k < width) saw = visit(__ldg(row + k), pad, f);
+    // every lane votes, the done ones too (not short-circuited)
+    const unsigned vote = __ballot_sync(kFull, saw);
+    done = done || (vote & group) != 0u;
+  }
 }
 
 }  // namespace rows

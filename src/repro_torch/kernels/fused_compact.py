@@ -1,10 +1,15 @@
 """One IPGC iteration in one pass (``csrc/fused_compact.cu``): resolve,
 windowed mex, new color and base, and the ordered emission of the
 surviving rows' ``ids``. The oracle is
-``repro.kernels.ref.fused_compact_ref``.
+``repro.kernels.ref.fused_compact_ref``, which takes the neighbour tiles
+and the hub bitmap pre-gathered (``fused_compact_plain``, the Pallas
+signature). The kernel gathers them itself from the ``colors`` and
+``priority`` vectors, the graph's ELL tile, the rows to update and, in the
+hub variant, the per-hub tables (``fused_compact_rows_plain`` is its plain
+twin).
 
-Two variants: no-hub (``extra_forb`` and ``hub_lose`` are None) and hub
-(both given).
+Two variants: no-hub (``hub_forb``, ``hub_lose`` and ``hub_slot`` are
+None) and hub (all three given).
 """
 from __future__ import annotations
 
@@ -15,15 +20,16 @@ import torch
 from repro_torch.graphs.csr import NO_COLOR
 from repro_torch.kernels import _build
 from repro_torch.kernels.compact import compact_plain, scratch
-from repro_torch.kernels.conflict import conflict_plain
+from repro_torch.kernels.conflict import (conflict_plain, gather_rows,
+                                          require_graph)
 from repro_torch.kernels.mex_window import MAX_WINDOW, mex_window_plain
 
 
 def fused_compact_plain(nc, npr, nbr_ids, base, cu, pu, ids, active, pending,
                         extra_forb, hub_lose, window: int, *, capacity: int,
                         n_sentinel: int):
-    """Plain PyTorch version; returns ``(new_colors, new_base, still,
-    items, count)`` like the kernel."""
+    """Plain PyTorch version over pre-gathered tiles; returns
+    ``(new_colors, new_base, still, items, count)`` like the kernel."""
     lose = conflict_plain(nc, npr, nbr_ids, cu, pu, ids) & pending
     if hub_lose is not None:
         lose = lose | (hub_lose & pending)
@@ -37,35 +43,67 @@ def fused_compact_plain(nc, npr, nbr_ids, base, cu, pu, ids, active, pending,
     return new_c, new_base, need, items, count
 
 
-_ARGTYPES = ((ctypes.c_void_p,) * 17
-             + (ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+def _check_hub(hub_forb, hub_lose, hub_slot) -> bool:
+    given = [t is not None for t in (hub_forb, hub_lose, hub_slot)]
+    if any(given) != all(given):
+        raise ValueError("fused_compact: hub_forb, hub_lose and hub_slot "
+                         "come together (the hub variant) or not at all")
+    return all(given)
 
 
-def fused_compact_cuda(nc, npr, nbr_ids, base, cu, pu, ids, active, pending,
-                       extra_forb, hub_lose, window: int, *, capacity: int,
-                       n_sentinel: int):
+def fused_compact_rows_plain(colors, priority, ell_idx, rows, base, cu, pu,
+                             ids, active, pending, hub_forb, hub_lose,
+                             hub_slot, window: int, *, capacity: int,
+                             n_sentinel: int):
+    """Plain twin of the kernel: gather the neighbour tiles and the hub
+    rows (table row ``n_hub`` is never read), then
+    ``fused_compact_plain``; rows ``>= Rg`` are neither active nor
+    pending."""
+    nbr, ok = gather_rows(ell_idx, rows, colors.shape[0] - 1)
+    extra = hl = None
+    if _check_hub(hub_forb, hub_lose, hub_slot):
+        n_hub = hub_forb.shape[0] - 1
+        slot, _ = gather_rows(hub_slot[:, None], rows, n_hub)
+        is_hub = slot[:, 0] < n_hub
+        extra = hub_forb[slot[:, 0]] & is_hub[:, None]
+        hl = hub_lose[slot[:, 0]] & is_hub
+    return fused_compact_plain(colors[nbr], priority[nbr], nbr, base, cu, pu,
+                               ids, active & ok, pending & ok, extra, hl,
+                               window, capacity=capacity,
+                               n_sentinel=n_sentinel)
+
+
+_ARGTYPES = ((ctypes.c_void_p,) * 19
+             + (ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p))
+
+
+def fused_compact_cuda(colors, priority, ell_idx, rows, base, cu, pu, ids,
+                       active, pending, hub_forb, hub_lose, hub_slot,
+                       window: int, *, capacity: int, n_sentinel: int):
     """Launch the CUDA kernels (four launches: the row pass, then the
-    count, scan and write of the emission)."""
+    count, scan and write of the emission; three for zero rows)."""
     if not 1 <= window <= MAX_WINDOW:
         raise ValueError(f"fused_compact: the CUDA kernel takes windows of "
                          f"1..{MAX_WINDOW} colors, got {window}")
-    if (extra_forb is None) != (hub_lose is None):
-        raise ValueError("fused_compact: extra_forb and hub_lose come "
-                         "together (the hub variant) or not at all")
-    r, k = nc.shape
-    dev = nc.device
-    for name, t in (("nc", nc), ("npr", npr), ("nbr_ids", nbr_ids)):
-        _build.require(t, f"fused_compact {name}", torch.int32, (r, k), dev)
+    hub = _check_hub(hub_forb, hub_lose, hub_slot)
+    dev = colors.device
+    r, rg = require_graph("fused_compact", colors, priority, ell_idx, rows,
+                          dev)
     for name, t in (("base", base), ("cu", cu), ("pu", pu), ("ids", ids)):
         _build.require(t, f"fused_compact {name}", torch.int32, (r,), dev)
     for name, t in (("active", active), ("pending", pending)):
         _build.require(t, f"fused_compact {name}", torch.bool, (r,), dev)
-    if extra_forb is not None:
-        _build.require(extra_forb, "fused_compact extra_forb", torch.bool,
-                       (r, window), dev)
-        _build.require(hub_lose, "fused_compact hub_lose", torch.bool, (r,),
-                       dev)
+    n_hub = 0
+    if hub:
+        n_hub = hub_forb.shape[0] - 1
+        _build.require(hub_forb, "fused_compact hub_forb", torch.bool,
+                       (n_hub + 1, window), dev)
+        _build.require(hub_lose, "fused_compact hub_lose", torch.bool,
+                       (n_hub + 1,), dev)
+        _build.require(hub_slot, "fused_compact hub_slot", torch.int32,
+                       (rg,), dev)
     new_c = torch.empty(r, dtype=torch.int32, device=dev)
     new_base = torch.empty(r, dtype=torch.int32, device=dev)
     still = torch.empty(r, dtype=torch.bool, device=dev)
@@ -74,14 +112,15 @@ def fused_compact_cuda(nc, npr, nbr_ids, base, cu, pu, ids, active, pending,
     ptr = (lambda t: None if t is None else t.data_ptr())
     fn = _build.function("fused_compact", "fused_compact_launch", _ARGTYPES)
     with torch.cuda.device(dev):
-        err = fn(nc.data_ptr(), npr.data_ptr(), nbr_ids.data_ptr(),
-                 base.data_ptr(), cu.data_ptr(), pu.data_ptr(),
+        err = fn(colors.data_ptr(), priority.data_ptr(), ell_idx.data_ptr(),
+                 ptr(rows), base.data_ptr(), cu.data_ptr(), pu.data_ptr(),
                  ids.data_ptr(), active.data_ptr(), pending.data_ptr(),
-                 ptr(extra_forb), ptr(hub_lose), new_c.data_ptr(),
-                 new_base.data_ptr(), still.data_ptr(), items.data_ptr(),
-                 count.data_ptr(), scratch(r, dev).data_ptr(), r, k, window,
-                 capacity, n_sentinel, int(NO_COLOR),
-                 torch.cuda.current_stream(dev).cuda_stream)
+                 ptr(hub_forb), ptr(hub_lose), ptr(hub_slot),
+                 new_c.data_ptr(), new_base.data_ptr(), still.data_ptr(),
+                 items.data_ptr(), count.data_ptr(),
+                 scratch(r, dev).data_ptr(), r, rg, ell_idx.shape[1],
+                 window, colors.shape[0] - 1, n_hub, capacity, n_sentinel,
+                 int(NO_COLOR), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_compact")
-    _build.KERNEL_LAUNCHES["fused_compact"] += 4
+    _build.KERNEL_LAUNCHES["fused_compact"] += 4 if r else 3
     return new_c, new_base, still, items, count

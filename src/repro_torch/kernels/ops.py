@@ -12,11 +12,12 @@ import torch
 
 from repro_torch.kernels._build import KERNEL_LAUNCHES  # noqa: F401
 from repro_torch.kernels.compact import compact_cuda, compact_plain
-from repro_torch.kernels.conflict import conflict_cuda, conflict_plain
+from repro_torch.kernels.conflict import (conflict_cuda,
+                                          conflict_rows_plain)
 from repro_torch.kernels.frontier import (frontier_probe_cuda,
                                           frontier_probe_plain)
 from repro_torch.kernels.fused_compact import (fused_compact_cuda,
-                                               fused_compact_plain)
+                                               fused_compact_rows_plain)
 from repro_torch.kernels.fused_step import fused_step_cuda, fused_step_plain
 from repro_torch.kernels.jpl_prio import jpl_extrema_cuda, jpl_extrema_plain
 from repro_torch.kernels.mex_window import mex_window_cuda, mex_window_plain
@@ -42,12 +43,20 @@ def mex_window(nc: torch.Tensor, base: torch.Tensor,
     return fn(nc, base, extra_forb, window)
 
 
-def conflict(nc: torch.Tensor, npr: torch.Tensor, nbr_ids: torch.Tensor,
-             cu: torch.Tensor, pu: torch.Tensor,
-             ids: torch.Tensor) -> torch.Tensor:
-    """Per-row lose flags: same color >= 0 and a higher (priority, id)."""
-    fn = conflict_cuda if _on_cuda(nc) else conflict_plain
-    return fn(nc, npr, nbr_ids, cu, pu, ids)
+def conflict(colors: torch.Tensor, priority: torch.Tensor,
+             ell_idx: torch.Tensor, rows: "torch.Tensor | None",
+             cu: torch.Tensor, pu: torch.Tensor, ids: torch.Tensor,
+             newly: torch.Tensor) -> torch.Tensor:
+    """Per-row lose flags of the newly colored rows: same color >= 0 as a
+    neighbour with a higher (priority, id).
+
+    colors, priority int32[N+1] (slot N the pad id's); ell_idx (Rg, K)
+    int32, pad N; rows int32[R] graph rows (values >= Rg are empty rows)
+    or None for all Rg rows; cu, pu, ids int32[R]; newly bool[R]. The
+    neighbours are gathered inside the kernel (see ``kernels/conflict.py``).
+    """
+    fn = conflict_cuda if _on_cuda(colors) else conflict_rows_plain
+    return fn(colors, priority, ell_idx, rows, cu, pu, ids, newly)
 
 
 def compact(mask: torch.Tensor, capacity: "int | None" = None,
@@ -62,15 +71,18 @@ def compact(mask: torch.Tensor, capacity: "int | None" = None,
     return fn(mask, capacity, sentinel, values)
 
 
-def fused_compact(nc, npr, nbr_ids, base, cu, pu, ids, active, pending,
-                  extra_forb, hub_lose, window: int, *, capacity: int,
-                  n_sentinel: int):
+def fused_compact(colors, priority, ell_idx, rows, base, cu, pu, ids,
+                  active, pending, hub_forb, hub_lose, hub_slot, window: int,
+                  *, capacity: int, n_sentinel: int):
     """One IPGC iteration over R rows: ``(new_colors, new_base, still,
-    items[capacity], count)`` (see ``kernels/fused_compact.py``)."""
-    fn = fused_compact_cuda if _on_cuda(nc) else fused_compact_plain
-    return fn(nc, npr, nbr_ids, base, cu, pu, ids, active, pending,
-              extra_forb, hub_lose, window, capacity=capacity,
-              n_sentinel=n_sentinel)
+    items[capacity], count)``. The graph operands are those of
+    ``conflict``; base, cu, pu, ids int32[R], active, pending bool[R]; the
+    hub variant takes the (n_hub+1, W) forbidden and (n_hub+1,) lose
+    tables and hub_slot int32[Rg] (see ``kernels/fused_compact.py``)."""
+    fn = fused_compact_cuda if _on_cuda(colors) else fused_compact_rows_plain
+    return fn(colors, priority, ell_idx, rows, base, cu, pu, ids, active,
+              pending, hub_forb, hub_lose, hub_slot, window,
+              capacity=capacity, n_sentinel=n_sentinel)
 
 
 def fused_step(nc, npr, nbr_ids, base, cu, pu, ids, pending, extra_forb,

@@ -13,12 +13,14 @@ import repro_torch
 from repro_torch.core.bfs import bfs, bfs_reference
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.compact import compact_plain
-from repro_torch.kernels.conflict import conflict_plain
+from repro_torch.kernels.conflict import conflict_rows_plain
 from repro_torch.kernels.frontier import frontier_probe_plain
-from repro_torch.kernels.fused_compact import fused_compact_plain
+from repro_torch.kernels.fused_compact import fused_compact_rows_plain
 from repro_torch.kernels.fused_step import fused_step_plain
 from repro_torch.kernels.jpl_prio import jpl_extrema_plain
 from repro_torch.kernels.mex_window import mex_window_plain
+
+from _gather_cases import gather_case
 
 # the test workers share the machine's cores: no intra-op thread pool
 torch.set_num_threads(1)
@@ -43,25 +45,62 @@ def _t(a, dev):
 def test_row_kernels_match_plain(dev, r, k, w, hub):
     rng = np.random.default_rng(r + k + w + hub)
     nc = rng.integers(-2, 300, size=(r, k)).astype(np.int32)
-    npr = rng.integers(-1, 100, size=(r, k)).astype(np.int32)
-    nid = rng.integers(0, r + 1, size=(r, k)).astype(np.int32)
     base = (rng.integers(0, 4, size=r) * w).astype(np.int32)
-    cu = rng.integers(-2, 300, size=r).astype(np.int32)
-    pu = rng.integers(0, 100, size=r).astype(np.int32)
-    ids = np.arange(r, dtype=np.int32)
-    act = rng.random(r) < 0.8
     extra = (rng.random((r, w)) < 0.25) if hub else None
-    hl = ((rng.random(r) < 0.1) & act) if hub else None
-    c = [_t(a, dev) for a in (nc, npr, nid, cu, pu, ids)]
-    assert torch.equal(ops.conflict(*c), conflict_plain(*c))
     m = [_t(a, dev) for a in (nc, base, extra)]
     assert torch.equal(ops.mex_window(*m, w), mex_window_plain(*m, w))
-    case = [_t(a, dev) for a in (nc, npr, nid, base, cu, pu, ids, act,
-                                 act & (cu >= 0), extra, hl)]
-    for cap in (r, max(r // 3, 1), r + 5):
-        got = ops.fused_compact(*case, w, capacity=cap, n_sentinel=r)
-        want = fused_compact_plain(*case, w, capacity=cap, n_sentinel=r)
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _gather_args(c, names, dev):
+    return [_t(c[name], dev) for name in names]
+
+
+def _cpu(ts):
+    return [None if a is None else a.cpu() for a in ts]
+
+
+_CONFLICT = ("colors", "priority", "ell", "rows", "cu", "pu", "ids", "newly")
+_FUSED = ("colors", "priority", "ell", "rows", "base", "cu", "pu", "ids",
+          "active", "pending", "hub_forb", "hub_lose", "hub_slot")
+
+
+@pytest.mark.parametrize("rg,k", [(0, 8), (1, 8), (7, 8), (40, 16),
+                                  (100, 40), (257, 128), (3000, 128),
+                                  (100, 3), (50, 12)])
+@pytest.mark.parametrize("w", [1, 32, 256])
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("hub", [False, True])
+def test_gather_kernels_match_plain(dev, rg, k, w, sparse, hub):
+    """conflict and fused_compact, which gather the neighbours themselves,
+    against their plain twins: rows None or sparse with sentinels, hub and
+    no-hub, rows of length 0, < K and K, R = 0, truncating capacities, and
+    an unaligned ELL tile (the one-entry loads)."""
+    c = gather_case(rg * 5 + k + w + 2 * sparse + hub, rg, k, sparse=sparse,
+                    hub=hub, window=w, lo=3)
+    r = len(c["cu"])
+    cases = [_gather_args(c, _CONFLICT, dev)]
+    if rg > 1 and k % 4 == 0:
+        ell = _t(c["ell"], dev).reshape(-1)
+        shifted = torch.empty(ell.numel() + 1, dtype=ell.dtype, device=dev)
+        shifted[1:] = ell
+        cases.append(list(cases[0]))
+        cases[1][2] = shifted[1:].view(rg, k)
+    for args in cases:
+        before = _build.KERNEL_LAUNCHES["conflict"]
+        assert torch.equal(ops.conflict(*args).cpu(),
+                           conflict_rows_plain(*_cpu(args)))
+        assert _build.KERNEL_LAUNCHES["conflict"] == before + (r > 0)
+        fargs = _gather_args(c, _FUSED, dev)
+        fargs[2] = args[2]
+        for cap in (max(r, 1), max(r // 3, 1), r + 5):
+            before = _build.KERNEL_LAUNCHES["fused_compact"]
+            got = ops.fused_compact(*fargs, w, capacity=cap,
+                                    n_sentinel=c["n"])
+            want = fused_compact_rows_plain(*_cpu(fargs), w, capacity=cap,
+                                            n_sentinel=c["n"])
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+            assert _build.KERNEL_LAUNCHES["fused_compact"] == \
+                before + (4 if r else 3)
 
 
 @pytest.mark.parametrize("n", [1, 2047, 2049, 100_003])

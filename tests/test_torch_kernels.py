@@ -154,7 +154,7 @@ def test_mex_and_conflict_plain_match_pallas_interpret():
     pu = rng.integers(0, 100, size=(40,)).astype(np.int32)
     ids = np.arange(40, dtype=np.int32)
     args = (nc, npr, nid, cu, pu, ids)
-    _eq(ops.conflict(*map(_t, args)),
+    _eq(conflict_plain(*map(_t, args)),
         conflict_pallas(*map(_j, args), interpret=True))
 
 
