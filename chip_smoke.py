@@ -13,10 +13,12 @@ each failing the script on any error:
    exactly; their times beside the plain version's, the byte bound and,
    where one PyTorch call computes the same function, that call. The
    kernels that gather the neighbours themselves (``conflict``,
-   ``fused_compact``) are also timed against the gathers their earlier
-   signature needed (``gather_ms``), and at the items block of the kron
-   sparse steps' most-used capacity bucket (recorded during the ipgc runs
-   of phase 3);
+   ``fused_compact``, ``fused_step``) are also timed against the gathers
+   their earlier signature needed (``gather_ms``), and at the items block
+   of the kron sparse steps' most-used capacity bucket (recorded during
+   the ipgc runs of phases 3 and 4), as is ``compact``; ``compact`` (one
+   launch, a decoupled look-back) also repeats 100 times at 2**21 and
+   50.8M flags, bit-equal every time;
 3. path: on kron_g500-logn21_s at scale 32 (2**21 nodes, ell-tail, hubs)
    and europe_osm_s at scale 127 (50.8M nodes, pure-ell), the hybrid Pipe
    (``repro_torch.color``) with ipgc two-phase and fused, jpl and
@@ -34,7 +36,8 @@ each failing the script on any error:
    ``fused_step`` over 50.8M rows); launch and exchange counts per run (1
    exchange per fused iteration and JPL round, 2 per two-phase one), a
    verified coloring, and a replay of each under sync debug "error"; the
-   ``fused_step`` kernel row is timed at the kron S=4 dense shape;
+   ``fused_step`` kernel row is timed at the kron S=4 dense shape, as
+   shard 0's fused dense step hands it over;
 5. card vs CPU: kron at scale 1 colored (ipgc, jpl, spec-greedy) and
    searched (BFS, three modes) on the card and on the CPU gives identical
    results, and BFS equals the host oracle; the distributed Pipe at 1 and
@@ -77,17 +80,19 @@ from repro_torch.core.worklist import (Worklist,  # noqa: E402
                                        resize_items)
 from repro_torch.exec import default_session  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels.compact import TILE as COMPACT_TILE  # noqa: E402
 from repro_torch.kernels.compact import compact_plain  # noqa: E402
 from repro_torch.kernels.conflict import (conflict_rows_plain,  # noqa: E402
                                           gather_rows)
 from repro_torch.kernels.frontier import frontier_probe_plain  # noqa: E402
 from repro_torch.kernels.fused_compact import \
     fused_compact_rows_plain  # noqa: E402
-from repro_torch.kernels.fused_step import fused_step_plain  # noqa: E402
+from repro_torch.kernels.fused_step import \
+    fused_step_rows_plain  # noqa: E402
 from repro_torch.kernels.jpl_prio import jpl_extrema_plain  # noqa: E402
 from repro_torch.kernels.mex_window import mex_window_plain  # noqa: E402
 
-from _gather_cases import gather_case  # noqa: E402
+from _gather_cases import gather_case, gathered  # noqa: E402
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the non-tensor-core
 #: 32-bit vector rate (67 TFLOP/s) as the rate of the kernels' integer work
@@ -203,17 +208,7 @@ def edge_cases(dev) -> None:
                                  mex_window_plain(t(nc), t(base), t(e), w),
                                  f"mex_window r={r} k={k} w={w}")
     gather_edge_cases(dev)
-    for n in (1, 5, 2047, 2048, 2049, 100_003):
-        for density in (0.0, 0.3, 1.0):
-            mask = t(rng.random(n) < density)
-            values = t(rng.integers(0, 10**6, size=n).astype(np.int32))
-            for cap in (n, max(n // 2, 1), n + 7):
-                assert_equal(ops.compact(mask, cap, n),
-                             compact_plain(mask, cap, n),
-                             f"compact n={n} cap={cap}")
-            assert_equal(ops.compact(mask, n, n, values),
-                         compact_plain(mask, n, n, values),
-                         f"compact values n={n}")
+    compact_edge_cases(dev, rng)
     for r in (0, 1, 7, 257, 3000):
         for k in (1, 3, 8, 40, 128):
             for inactive in (0.3, 1.0):
@@ -237,49 +232,54 @@ def edge_cases(dev) -> None:
                 assert_equal(ops.frontier_probe(z, u),
                              frontier_probe_plain(z, u),
                              f"frontier_probe unaligned r={r} k={k}")
-    for r in (0, 1, 7, 257, 3000):
-        for k in (1, 8, 128):
-            for w in (32, 256):
-                nc = rng.integers(-2, 300, size=(r, k)).astype(np.int32)
-                npr = rng.integers(-1, 100, size=(r, k)).astype(np.int32)
-                nid = rng.integers(0, r + 1, size=(r, k)).astype(np.int32)
-                base = (rng.integers(0, 4, size=r) * w).astype(np.int32)
-                cu = rng.integers(-2, 300, size=r).astype(np.int32)
-                pu = rng.integers(0, 100, size=r).astype(np.int32)
-                ids = np.arange(r, dtype=np.int32)
-                pend = (rng.random(r) < 0.8) & (cu >= 0)
-                extra = rng.random((r, w)) < 0.25
-                extra[::3] = True          # fully forbidden: first = -1
-                for e in (None, extra):
-                    case = [t(a) for a in (nc, npr, nid, base, cu, pu, ids,
-                                           pend, e)]
-                    got = ops.fused_step(*case, w)
-                    assert_equal(got, fused_step_plain(*case, w),
-                                 f"fused_step r={r} k={k} w={w} "
-                                 f"hub={e is not None}")
-                    if e is not None and r and not (got[1][::3] == -1).all():
-                        raise AssertionError("fused_step: a full window "
-                                             "did not give -1")
-                if r > 1:      # an unaligned view of every operand
-                    def view(a):
-                        flat = t(a).reshape(-1)
-                        x = torch.empty(flat.numel() + 1, dtype=flat.dtype,
-                                        device=dev)
-                        x[1:] = flat
-                        return x[1:].reshape(a.shape)
-                    case = [view(a) for a in (nc, npr, nid, base, cu, pu,
-                                              ids, pend, extra)]
-                    assert_equal(ops.fused_step(*case, w),
-                                 fused_step_plain(*case, w),
-                                 f"fused_step unaligned r={r} k={k} w={w}")
     log(phase="kernels.edge_cases", equal=True)
 
 
+#: compact's edge sizes: around its tile (COMPACT_TILE flags), the kron
+#: dense worklist (2**21) and europe's (50.8M, 6.2K scan tiles)
+COMPACT_SIZES = (0, 1, COMPACT_TILE - 1, COMPACT_TILE, COMPACT_TILE + 1,
+                 3 * COMPACT_TILE + 5, 2**21, 50_800_000)
+#: sizes whose compactions repeat, every repeat bit-equal to the first
+COMPACT_REPEATS = {2**21: 100, 50_800_000: 100}
+
+
+def compact_edge_cases(dev, rng) -> None:
+    """compact (one launch, decoupled look-back) against compact_plain at
+    each size and density of flags, capacity below, at and above the
+    count, with and without values, and on an unaligned mask (the
+    one-byte loads); at 2**21 and 50.8M flags every call repeats 100
+    times, bit-equal each time."""
+    for n in COMPACT_SIZES:
+        values = torch.randint(0, 2**31 - 1, (n,), dtype=torch.int32,
+                               device=dev)
+        for density in (0.0, 1 / 1024, 0.5, 1.0):
+            mask = torch.from_numpy(rng.random(n) < density).to(dev)
+            count = int(mask.sum())
+            for cap in sorted({max(count - 1 - count // 3, 0), count,
+                               count + 7}):
+                for vals in (None, values):
+                    want = compact_plain(mask, cap, n, vals)
+                    what = (f"compact n={n} density={density} cap={cap} "
+                            f"values={vals is not None}")
+                    for _ in range(COMPACT_REPEATS.get(n, 1)):
+                        assert_equal(ops.compact(mask, cap, n, vals), want,
+                                     what)
+            if n > 1:        # an unaligned view: the one-byte loads
+                flat = torch.empty(n, dtype=torch.bool, device=dev)
+                view = flat[1:]
+                view.copy_(mask[1:])
+                assert_equal(ops.compact(view, n, n - 1),
+                             compact_plain(view, n, n - 1),
+                             f"compact unaligned n={n} density={density}")
+    log(phase="kernels.compact_edge_cases", sizes=list(COMPACT_SIZES),
+        repeats=COMPACT_REPEATS, bit_equal=True)
+
+
 def gather_edge_cases(dev) -> None:
-    """conflict and fused_compact, which gather the neighbours themselves:
-    rows None or sparse with sentinels, hub and no-hub, rows of length 0,
-    < K and K, R = 0, empty/full activity, truncating and padding
-    capacities, 16-byte and one-entry ELL loads."""
+    """conflict, fused_compact and fused_step, which gather the neighbours
+    themselves: rows None or sparse with sentinels, hub and no-hub, rows of
+    length 0, < K and K, R = 0, empty/full activity, exhausted windows,
+    truncating and padding capacities, 16-byte and one-entry ELL loads."""
     def t(a):
         return None if a is None else torch.from_numpy(np.asarray(a)).to(dev)
 
@@ -288,6 +288,7 @@ def gather_edge_cases(dev) -> None:
     fused_names = ("colors", "priority", "ell", "rows", "base", "cu", "pu",
                    "ids", "active", "pending", "hub_forb", "hub_lose",
                    "hub_slot")
+    step_names = fused_names[:8] + fused_names[9:]
     for rg in (0, 1, 7, 257, 3000):
         for k in (1, 3, 8, 40, 128):
             for w in (1, 32, 128, 256):
@@ -303,6 +304,17 @@ def gather_edge_cases(dev) -> None:
                         assert_equal(ops.conflict(*args),
                                      conflict_rows_plain(*args),
                                      f"conflict {what}")
+                        step = [t(c[n]) for n in step_names]
+                        got = ops.fused_step(*step, w)
+                        assert_equal(got, fused_step_rows_plain(*step, w),
+                                     f"fused_step {what}")
+                        if hub:
+                            # rows at an all-forbidden hub row: first = -1
+                            full = gathered(c)["extra"].all(axis=1)
+                            if not (got[1].cpu().numpy()[full] == -1).all():
+                                raise AssertionError(
+                                    f"fused_step {what}: a full window did "
+                                    "not give -1")
                         for act_p in (0.0, 1.0, None):
                             if act_p is not None:
                                 c["active"] = np.full(r, act_p > 0)
@@ -322,10 +334,13 @@ def gather_edge_cases(dev) -> None:
                             x = torch.empty(flat.numel() + 1,
                                             dtype=flat.dtype, device=dev)
                             x[1:] = flat
-                            args[2] = case[2] = x[1:].view(rg, k)
+                            args[2] = case[2] = step[2] = x[1:].view(rg, k)
                             assert_equal(ops.conflict(*args),
                                          conflict_rows_plain(*args),
                                          f"conflict unaligned {what}")
+                            assert_equal(ops.fused_step(*step, w),
+                                         fused_step_rows_plain(*step, w),
+                                         f"fused_step unaligned {what}")
                             assert_equal(
                                 ops.fused_compact(*case, w, capacity=r,
                                                   n_sentinel=c["n"]),
@@ -335,13 +350,25 @@ def gather_edge_cases(dev) -> None:
                                 f"fused_compact unaligned {what}")
 
 
+def items_rows(args) -> "int | None":
+    """The row count of a gathering kernel's call from an items block
+    (``rows`` given), None for a dense call (``rows`` None)."""
+    return None if args[3] is None else args[4].shape[0]
+
+
+def all_rows(args) -> int:
+    """The row count of a gathering kernel's call."""
+    return args[4].shape[0]
+
+
 class Recorder:
     """Wraps ``ops.<name>`` while active: counts its calls by row count
-    and keeps the arguments of the first call at each row count (the
-    operands the main path hands the kernel, as they were)."""
+    (``rows_of(args)``; None skips the call) and keeps the arguments of the
+    first call at each row count (the operands the main path hands the
+    kernel, as they were)."""
 
-    def __init__(self, name: str, sparse_only: bool = False):
-        self.name, self.sparse_only = name, sparse_only
+    def __init__(self, name: str, rows_of=items_rows):
+        self.name, self.rows_of = name, rows_of
         self.calls: dict[int, int] = {}
         self.args: dict[int, tuple] = {}
 
@@ -349,8 +376,8 @@ class Recorder:
         real = self.real = getattr(ops, self.name)
 
         def spy(*args, **kw):
-            if not (self.sparse_only and args[3] is None):
-                r = args[4].shape[0]
+            r = self.rows_of(args)
+            if r is not None:
                 self.calls[r] = self.calls.get(r, 0) + 1
                 self.args.setdefault(r, (args, kw))
             return real(*args, **kw)
@@ -377,9 +404,9 @@ def main_path_operands(ig, window: int):
     for _ in range(2):
         colors, base, wl = ipgc.fused_dense_step(ig, colors, base, wl,
                                                  window=window)
-    with Recorder("conflict") as rec_c:
+    with Recorder("conflict", all_rows) as rec_c:
         ipgc.dense_step(ig, colors, base, wl, window=window)
-    with Recorder("fused_compact") as rec_f:
+    with Recorder("fused_compact", all_rows) as rec_f:
         ipgc.fused_dense_step(ig, colors, base, wl, window=window)
     extra = None
     if ig.n_hub > 0:
@@ -454,11 +481,51 @@ def fused_compact_work(colors, priority, ell_idx, rows, base, cu, pu, ids,
     return nbytes, 4 * n_real + 4 * n_same
 
 
-def old_gathers(args, fused: bool):
+def fused_step_work(colors, priority, ell_idx, rows, base, cu, pu, ids,
+                    pending, hub_forb, hub_lose, hub_slot,
+                    window) -> tuple[int, int]:
+    """Bytes and operations the fused_step kernel needs on these inputs,
+    each read once: ``rows`` of every row (when given); ``base``, ``cu`` and
+    ``pending`` of the graph rows; ``pu`` and ``ids`` of the pending
+    colored ones; 4 bytes per real ELL entry of the graph rows (the padding
+    is never read), the distinct colors they touch, the distinct
+    priorities at same-color entries of pending colored rows; each graph
+    row's hub slot and each hub row's W bytes of its forbidden row and its
+    lose flag; the outputs (lose and first per row)."""
+    pad = colors.shape[0] - 1
+    nbr, ok = gather_rows(ell_idx, rows, pad)
+    r = cu.shape[0]
+    check = pending & ok & (cu >= 0)
+    real = (nbr != pad) & ok[:, None]
+    same = real & check[:, None] & (colors[nbr] == cu[:, None])
+    n_real, n_same = int(real.sum()), int(same.sum())
+    n_ok = int(ok.sum())
+    nbytes = ((0 if rows is None else 4 * r) + 9 * n_ok
+              + 8 * int(check.sum()) + 4 * n_real + 4 * _unique(nbr[real])
+              + 4 * _unique(nbr[same]) + 5 * r)
+    if hub_forb is not None:
+        n_hub = hub_forb.shape[0] - 1
+        slot, _ = gather_rows(hub_slot[:, None], rows, n_hub)
+        hub_rows = ok & (slot[:, 0] < n_hub)
+        nbytes += 4 * n_ok + int(hub_rows.sum()) * (window + 1)
+    return nbytes, 4 * n_real + 4 * n_same
+
+
+#: the gathering kernels: (plain twin, work on the inputs, the index of
+#: hub_forb in their arguments (None: no hub tables), of the window)
+GATHERING = {
+    "conflict": (conflict_rows_plain, conflict_work, None, None),
+    "fused_compact": (fused_compact_rows_plain, fused_compact_work, 10, 13),
+    "fused_step": (fused_step_rows_plain, fused_step_work, 9, 12),
+}
+
+
+def old_gathers(args, hub_at: "int | None"):
     """The PyTorch gathers the earlier, pre-gathered signature needed on
     these operands, as three callables: ``colors[ell]`` and
-    ``priority[ell]`` over the (R, K) neighbour-id tile; for
-    fused_compact's hub variant the (R, W) forbidden rows and the (R,)
+    ``priority[ell]`` over the (R, K) neighbour-id tile; for the hub
+    variant of fused_compact and fused_step (their hub tables at
+    ``args[hub_at:hub_at + 3]``) the (R, W) forbidden rows and the (R,)
     lose flags at each row's hub slot (None without hubs); and the build
     of that tile, which the sparse steps made (``ell_rows``; None for the
     dense steps, whose tile is the graph's)."""
@@ -466,8 +533,8 @@ def old_gathers(args, fused: bool):
     pad = colors.shape[0] - 1
     nbr = ell_idx if rows is None else gather_rows(ell_idx, rows, pad)[0]
     hub = None
-    if fused and args[10] is not None:
-        hub_forb, hub_lose, hub_slot = args[10:13]
+    if hub_at is not None and args[hub_at] is not None:
+        hub_forb, hub_lose, hub_slot = args[hub_at:hub_at + 3]
         slot = (hub_slot if rows is None
                 else gather_rows(hub_slot[:, None], rows,
                                  hub_forb.shape[0] - 1)[0][:, 0])
@@ -487,15 +554,13 @@ def gather_row(name, args, kw, shape: dict, reps: int) -> dict:
     twin, kernel / plain times, the bound on these inputs and the time of
     the earlier signature's gathers (``gather_ms``: the neighbour tiles'
     ``tile_gather_ms`` plus the hub rows' ``hub_gather_ms``)."""
-    fused = name == "fused_compact"
+    plain, work, hub_at, _ = GATHERING[name]
     kernel = getattr(ops, name)
-    plain = fused_compact_rows_plain if fused else conflict_rows_plain
-    work = fused_compact_work if fused else conflict_work
     nbytes, ops_ = work(*args, **kw)
     row = kernel_row(name, lambda: kernel(*args, **kw),
                      lambda: plain(*args, **kw), nbytes, ops_, shape, None,
                      reps)
-    tiles, hub, ell_rows = old_gathers(args, fused)
+    tiles, hub, ell_rows = old_gathers(args, hub_at)
     row["tile_gather_ms"] = cuda_ms(tiles, reps)
     row["hub_gather_ms"] = None if hub is None else cuda_ms(hub, reps)
     row["gather_ms"] = row["tile_gather_ms"] + (row["hub_gather_ms"] or 0.0)
@@ -537,6 +602,22 @@ def kernel_row(name, kernel, plain, nbytes, ops_, shape: dict,
         shape=shape)
 
 
+def stream_ops(fn, reps: int = 10) -> list:
+    """What each of ``reps`` calls of ``fn`` puts on the stream, as
+    ``torch.profiler`` records it: ``[name, count per call, device µs per
+    call]`` for every operation (kernels, memsets, copies, and the runtime
+    calls behind them, which take no device time)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return [[e.key, e.count / reps, e.self_device_time_total / reps]
+            for e in prof.key_averages()]
+
+
 def kernel_phase(ig, window: int, reps: int = 10) -> dict:
     """Each kernel at the kron main paths' shapes (the IPGC dense step, the
     JPL dense round, a bottom-up BFS level): equality with the plain
@@ -563,11 +644,16 @@ def kernel_phase(ig, window: int, reps: int = 10) -> dict:
     for name in ("conflict", "fused_compact"):
         args, kw = o[name]
         rows[name] = gather_row(name, args, kw, shape, reps)
+    args, kw = o["fused_compact"]
+    rows["fused_compact"]["stream_ops"] = stream_ops(
+        lambda: ops.fused_compact(*args, **kw))
     entry("compact",
           lambda: ops.compact(mask, o["capacity"], o["n"]),
           lambda: compact_plain(mask, o["capacity"], o["n"]),
           nbytes=r + o["capacity"] * 4 + 4, ops_=r,
           library=lambda: torch.nonzero(mask))
+    rows["compact"]["stream_ops"] = stream_ops(
+        lambda: ops.compact(mask, o["capacity"], o["n"]))
     # the JPL dense round's tile at round 0, every node pending
     pr = round_hash(o["ids"], torch.zeros((), dtype=torch.int32,
                                           device=ig.device))
@@ -656,20 +742,45 @@ COLORINGS = (("ipgc", False, ("mex_window", "conflict", "compact")),
              ("spec-greedy", None, ("fused_compact",)))
 
 
-#: the gathering kernel whose sparse-shape row each ipgc run records
-SPARSE_ROWS = {("ipgc", False): "conflict", ("ipgc", True): "fused_compact"}
+#: the kernels whose sparse-shape rows each ipgc run records
+SPARSE_ROWS = {("ipgc", False): ("conflict", "compact"),
+               ("ipgc", True): ("fused_compact",)}
 
 
-def sparse_row(rec: Recorder, g, reps: int) -> dict:
+def recorder(name: str, n: int) -> Recorder:
+    """A recorder of the sparse steps' calls of ``name``: a gathering
+    kernel's calls from items blocks, or compact's over fewer than ``n``
+    flags (an items block's, not a dense worklist's)."""
+    if name == "compact":
+        return Recorder(name, lambda a: a[0].shape[0]
+                        if a[0].shape[0] < n else None)
+    return Recorder(name)
+
+
+def sparse_row(rec: Recorder, reps: int) -> dict:
     """The recorded kernel at the items block of the sparse steps'
     most-used capacity bucket in the run, as the step handed it over."""
     c, n_calls, (args, kw) = rec.most_used()
-    window = args[13] if rec.name == "fused_compact" else None
-    shape = dict(rows=c, k=g.ell_width, window=window,
-                 hubs=rec.name == "fused_compact" and args[10] is not None,
-                 calls_at_this_capacity=n_calls,
-                 sparse_calls=sum(rec.calls.values()),
-                 calls_by_capacity=rec.calls)
+    counts = dict(calls_at_this_capacity=n_calls,
+                  sparse_calls=sum(rec.calls.values()),
+                  calls_by_capacity=rec.calls)
+    if rec.name == "compact":
+        mask, cap, sentinel, values = args
+        row = kernel_row(
+            "compact", lambda: ops.compact(*args),
+            lambda: compact_plain(mask, cap, sentinel, values),
+            c + 4 * int(mask.sum()) + 4 * cap + 4, c,
+            dict(rows=c, capacity=cap, **counts),
+            lambda: torch.nonzero(mask), reps)
+        row["stream_ops"] = stream_ops(lambda: ops.compact(*args))
+        return {key: row[key] for key in (
+            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "stream_ops")}
+    _, _, hub_at, window_at = GATHERING[rec.name]
+    shape = dict(rows=c, k=args[2].shape[1],
+                 window=None if window_at is None else args[window_at],
+                 hubs=hub_at is not None and args[hub_at] is not None,
+                 **counts)
     row = gather_row(rec.name, args, kw, shape, reps)
     return {key: row[key] for key in (
         "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -687,21 +798,23 @@ def path_phase(g, build_s: float, rows: "dict | None" = None,
     replay_ig = repro_torch.prepare(g)
     for algo, fused, need in COLORINGS:
         alg = get_algorithm(algo)
-        name = SPARSE_ROWS.get((algo, fused)) if rows is not None else None
-        rec = Recorder(name, sparse_only=True) if name else None
+        names = SPARSE_ROWS.get((algo, fused), ()) if rows is not None else ()
+        recs = [recorder(name, g.n_nodes) for name in names]
         start_counts()
-        with (rec or contextlib.nullcontext()), \
-                ipgc.LAUNCH_COUNTS.scope() as passes:
+        with contextlib.ExitStack() as stack:
+            for rec in recs:
+                stack.enter_context(rec)
+            passes = stack.enter_context(ipgc.LAUNCH_COUNTS.scope())
             t0 = time.perf_counter()
             r = repro_torch.color(g, algo=algo, fused=fused)
             wall = time.perf_counter() - t0
             pass_counts = passes.as_dict()
         counts = _build.KERNEL_LAUNCHES.as_dict()
-        if rec is not None:
-            rows[name]["sparse"] = sparse_row(rec, g, reps)
-            log(phase="kernels.sparse_shape", name=name,
-                **rows[name]["sparse"])
-        del rec
+        for rec in recs:
+            rows[rec.name]["sparse"] = sparse_row(rec, reps)
+            log(phase="kernels.sparse_shape", name=rec.name,
+                **rows[rec.name]["sparse"])
+        del recs
         what = f"{g.name} {algo} fused={fused}"
         missing = [k for k in need if counts[k] == 0]
         if missing:
@@ -823,24 +936,31 @@ def replay_dist_sync_free(ig, alg, mesh, window: int, fused, new_of_old,
     return final, it, "".join(trace)
 
 
-def dist_phase(g, devices, runs) -> tuple[list[dict], dict]:
+def dist_phase(g, devices, runs, record: bool = False,
+               reps: int = 10) -> tuple[list[dict], dict]:
     """The distributed Pipe on ``g`` for each of ``runs``: over
     ``devices`` through ``color_distributed``, or (None) through
     ``color(mode="dist-hybrid")`` with one shard per visible card. Every
-    run is verified, counted and replayed with the sync check. Returns the
-    kernel launches of each run, and the prepared partitioned graph, the
-    mesh and the window for the ``fused_step`` row."""
+    run is verified, counted and replayed with the sync check. With
+    ``record`` the ipgc fused run records the sparse steps' ``fused_step``
+    calls and times the kernel at its most-used capacity bucket. Returns
+    the kernel launches of each run, and the prepared partitioned graph,
+    the mesh, the window and that sparse entry for the ``fused_step``
+    row."""
     sess = default_session()
     mesh = dist.resolve_mesh(None, devices, sess.device)
     t0 = time.perf_counter()
     g2, relabel = sess.partition(g, len(mesh))
     partition_s = time.perf_counter() - t0
     replay_ig = repro_torch.prepare(g2)
-    launches = []
+    launches, sparse = [], None
     for algo, fused, per_iter in runs:
         alg = get_algorithm(algo)
+        rec = (Recorder("fused_step")
+               if record and (algo, fused) == ("ipgc", True) else None)
         start_counts()
-        with ipgc.LAUNCH_COUNTS.scope() as passes, \
+        with (rec or contextlib.nullcontext()), \
+                ipgc.LAUNCH_COUNTS.scope() as passes, \
                 dist.EXCHANGE_COUNTS.scope() as exchanges:
             t0 = time.perf_counter()
             if devices is None:
@@ -853,6 +973,12 @@ def dist_phase(g, devices, runs) -> tuple[list[dict], dict]:
             pass_counts = passes.as_dict()
             n_exchanges = exchanges["color_psum"]
         counts = _build.KERNEL_LAUNCHES.as_dict()
+        if rec is not None and rec.calls:
+            sparse = sparse_row(rec, reps)
+            sparse["shape"]["shards"] = len(mesh)
+            log(phase="kernels.sparse_shape", name="fused_step", graph=g.name,
+                **sparse)
+        del rec
         what = f"{g.name} dist S={len(mesh)} {algo} fused={fused}"
         missing = [k for k in dist_kernels(algo, fused) if counts[k] == 0]
         if missing:
@@ -882,39 +1008,30 @@ def dist_phase(g, devices, runs) -> tuple[list[dict], dict]:
                                  "from the run")
         log(phase="dist.sync_free_replay", graph=g.name, shards=len(mesh),
             algo=algo, fused=fused, iterations=iters, identical=True)
-    return launches, dict(ig=replay_ig, mesh=mesh, window=adaptive_window(g2))
+    return launches, dict(ig=replay_ig, mesh=mesh, window=adaptive_window(g2),
+                          sparse=sparse)
 
 
-def fused_step_row(ig, mesh, window: int, reps: int = 10) -> dict:
+def fused_step_row(ig, mesh, window: int, sparse: "dict | None",
+                   reps: int = 10) -> dict:
     """The ``fused_step`` kernel at the dense shape of the distributed
-    Pipe's first shard: its operands two fused dense iterations into a
-    run, as ``core/distributed.py`` hands them to the kernel."""
+    Pipe's first shard: the operands ``core/distributed.py`` hands it two
+    fused dense iterations into a run (recorded), against the gathers its
+    earlier signature needed; ``sparse`` is its entry at the sparse steps'
+    most-used capacity bucket."""
     dense, _ = get_algorithm("ipgc").make_dist_steps(ig, mesh, window=window,
                                                      fused=True)
     colors, base, wl = dist.shard_state(mesh, *init_ipgc_state(ig))
     for _ in range(2):
         colors, base, wl = dense(colors, base, wl)
-    sh = dist.shard_graph(ig, mesh)[0]
-    sig, c, b = sh.ig, colors[0], base[0]
-    nc = c[sig.ell_idx]
-    cu = c[sh.lo:sh.hi]
-    pending = wl.blocks[0].mask & (cu >= 0)
-    extra = None
-    if sig.n_hub > 0:
-        base_pad = dist._padded(sh, b, ig.n_nodes)
-        extra = ipgc._hub_forbidden(sig, c, base_pad, window)[sig.hub_slot]
-    args = (nc, sig.priority[sig.ell_idx], sig.ell_idx, b, cu,
-            sig.priority[sh.lo:sh.hi], sh.row_ids, pending, extra, window)
-    r, k = nc.shape
-    # priority and id bytes only at same-color entries of pending rows
-    n_same_pend = int(((nc == cu[:, None]) & pending[:, None]).sum())
-    nbytes = (r * k * 4 + r * (4 * 4 + 1) + r * (1 + 4) + n_same_pend * 8
-              + (0 if extra is None else r * window))
-    return kernel_row(
-        "fused_step", lambda: ops.fused_step(*args),
-        lambda: fused_step_plain(*args), nbytes, r * k * 4,
-        dict(rows=r, k=k, window=window, hubs=extra is not None,
-             shards=len(mesh)), None, reps)
+    with Recorder("fused_step", all_rows) as rec:
+        dense(colors, base, wl)
+    r, _, (args, kw) = rec.most_used()
+    row = gather_row("fused_step", args, kw,
+                     dict(rows=r, k=args[2].shape[1], window=args[12],
+                          hubs=args[9] is not None, shards=len(mesh)), reps)
+    row["sparse"] = sparse
+    return row
 
 
 # --- phase 5 -------------------------------------------------------------------
@@ -991,7 +1108,8 @@ def main() -> int:
     baselines_phase(kron)
     default_session().cache.clear()
     torch.cuda.empty_cache()
-    dist_runs, ctx = dist_phase(kron, [dev] * KRON_SHARDS, DIST_RUNS)
+    dist_runs, ctx = dist_phase(kron, [dev] * KRON_SHARDS, DIST_RUNS,
+                                record=True)
     runs += dist_runs
     rows["fused_step"] = fused_step_row(**ctx)
     del kron, ctx

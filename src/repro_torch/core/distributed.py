@@ -263,23 +263,21 @@ def _padded(sh: Shard, block: torch.Tensor, size: int) -> torch.Tensor:
 def _dense_fused_local(sh: Shard, colors, base_l, active, window: int):
     ig = sh.ig
     n = ig.n_nodes
-    nc = colors[ig.ell_idx]                            # local gather
     cu = colors[sh.lo:sh.hi]
     pu = ig.priority[sh.lo:sh.hi]
     pending = active & (cu >= 0)
-    npr = ig.priority[ig.ell_idx]
-    extra = hub_lose = None
+    hub_tables = None
     if ig.n_hub > 0:
         base_pad = _padded(sh, base_l, n)
-        extra = ipgc._hub_forbidden(ig, colors, base_pad, window)[ig.hub_slot]
         # only owned hub slots are read, and their tail_src rows are owned
         # too — the shard's own pending flags suffice (no exchange)
         pending_full = _padded(sh, pending, n + 1)
-        hub_lose = ipgc._hub_lose(ig, colors, pending_full)[ig.hub_slot]
-    lose, first, has = ipgc._fused_rows(nc, npr, ig.ell_idx, base_l, cu, pu,
-                                        sh.row_ids, pending, extra, window)
-    if hub_lose is not None:
-        lose = lose | (hub_lose & pending)
+        hub_tables = (ipgc._hub_forbidden(ig, colors, base_pad, window),
+                      ipgc._hub_lose(ig, colors, pending_full))
+    # the kernel gathers the shard's neighbours itself (rows None: all)
+    lose, first, has = ipgc._fused_rows(ig, colors, None, base_l, cu, pu,
+                                        sh.row_ids, pending, hub_tables,
+                                        window)
     need = lose | (active & (cu < 0))
     new_c = torch.where(need & has, base_l + first,
                         torch.where(lose, NO_COLOR, cu))
@@ -374,18 +372,22 @@ class _SparseRows:
 
     valid: torch.Tensor       # bool[C]
     local: torch.Tensor       # int64[C] block-local row (pad lanes -> 0)
+    rows: torch.Tensor        # int32[C] block-local row (pad lanes -> blk)
     ids: torch.Tensor         # int32[C] global ids, pad N
-    ell_rows: torch.Tensor    # int32[C, K], pad rows N
     cu: torch.Tensor          # int32[C] current colors (pad PAD_COLOR)
     base_rows: "torch.Tensor | None"   # int32[C] window bases
+    ell_rows: "torch.Tensor | None"    # int32[C, K], pad rows N
     slot: "torch.Tensor | None"    # int32[C] hub slot (pad n_hub)
     extra: "torch.Tensor | None"   # bool[C, W] hub forbidden bitmap
 
 
-def _sparse_rows(sh: Shard, colors, items_l, base_l=None,
-                 window: int = 0) -> _SparseRows:
+def _sparse_rows(sh: Shard, colors, items_l, base_l=None, window: int = 0,
+                 *, tiles: bool = True) -> _SparseRows:
     """Gather the shard's worklist rows; with ``base_l`` also their window
-    bases and, on a graph with hubs, their hub forbidden bitmaps."""
+    bases. With ``tiles`` (the callers whose kernels take pre-gathered
+    tiles) also their (C, K) ELL rows and, on a graph with hubs, their hub
+    slots and, with ``base_l``, their hub forbidden bitmaps; the fused
+    step's kernel gathers all of that itself from ``rows``."""
     ig = sh.ig
     n = ig.n_nodes
     blk = sh.hi - sh.lo
@@ -394,39 +396,41 @@ def _sparse_rows(sh: Shard, colors, items_l, base_l=None,
     # pad lanes
     local = torch.where(valid, items_l - sh.lo, 0).clamp(0, blk - 1).long()
     ids = torch.where(valid, items_l, n)
-    ell_rows = torch.where(valid[:, None], ig.ell_idx[local], n)
-    slot = extra = base_rows = None
-    if ig.n_hub > 0:
-        slot = torch.where(valid, ig.hub_slot[local], ig.n_hub)
+    ell_rows = slot = extra = base_rows = None
     if base_l is not None:
         base_rows = base_l[local]
+    if tiles:
+        ell_rows = torch.where(valid[:, None], ig.ell_idx[local], n)
         if ig.n_hub > 0:
-            base_pad = _padded(sh, base_l, n)
-            extra = ipgc._hub_forbidden(ig, colors, base_pad, window)[slot]
-    return _SparseRows(valid=valid, local=local, ids=ids, ell_rows=ell_rows,
-                       cu=colors[ids], base_rows=base_rows, slot=slot,
-                       extra=extra)
+            slot = torch.where(valid, ig.hub_slot[local], ig.n_hub)
+            if base_l is not None:
+                base_pad = _padded(sh, base_l, n)
+                extra = ipgc._hub_forbidden(ig, colors, base_pad,
+                                            window)[slot]
+    return _SparseRows(valid=valid, local=local,
+                       rows=torch.where(valid, local, blk).to(torch.int32),
+                       ids=ids, cu=colors[ids], base_rows=base_rows,
+                       ell_rows=ell_rows, slot=slot, extra=extra)
 
 
 def _sparse_fused_local(sh: Shard, colors, base_l, items_l, window: int):
     ig = sh.ig
     n = ig.n_nodes
-    r = _sparse_rows(sh, colors, items_l, base_l, window)
-    nc = colors[r.ell_rows]
+    r = _sparse_rows(sh, colors, items_l, base_l, tiles=False)
     pu = ig.priority[r.ids]
-    npr = ig.priority[r.ell_rows]
     pending = r.valid & (r.cu >= 0)
-    hub_lose = None
+    hub_tables = None
     if ig.n_hub > 0:
+        base_pad = _padded(sh, base_l, n)
         pending_full = ipgc._set_rows(
             torch.zeros(n + 1, dtype=torch.bool, device=sh.device),
             torch.where(pending, items_l, n), pending)
-        hub_lose = ipgc._hub_lose(ig, colors, pending_full)[r.slot] & r.valid
-    lose, first, has = ipgc._fused_rows(nc, npr, r.ell_rows, r.base_rows,
-                                        r.cu, pu, r.ids, pending, r.extra,
+        hub_tables = (ipgc._hub_forbidden(ig, colors, base_pad, window),
+                      ipgc._hub_lose(ig, colors, pending_full))
+    # the kernel gathers the items' neighbours itself (pad lanes: row blk)
+    lose, first, has = ipgc._fused_rows(ig, colors, r.rows, r.base_rows,
+                                        r.cu, pu, r.ids, pending, hub_tables,
                                         window)
-    if hub_lose is not None:
-        lose = lose | (hub_lose & pending)
     need = lose | (r.valid & (r.cu < 0))
     new_c = torch.where(need & has, r.base_rows + first,
                         torch.where(lose, NO_COLOR, r.cu))
@@ -456,8 +460,7 @@ def _sparse_resolve_local(sh: Shard, colors2, items_l, r: _SparseRows,
     ig = sh.ig
     n = ig.n_nodes
     # the shard's ELL rows of the items, pad lanes past its block
-    rows = torch.where(r.valid, r.local, sh.hi - sh.lo).to(torch.int32)
-    lose = ipgc._lose_rows(ig, rows, r.ids, colors2, newly)
+    lose = ipgc._lose_rows(ig, r.rows, r.ids, colors2, newly)
     if ig.n_hub > 0:
         newly_full = ipgc._set_rows(
             torch.zeros(n + 1, dtype=torch.bool, device=sh.device),

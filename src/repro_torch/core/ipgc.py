@@ -350,16 +350,24 @@ def _fused_compact_rows(ig: IPGCGraph, colors, rows, base_rows, cu, pu,
                              capacity=capacity, n_sentinel=ig.n_nodes)
 
 
-def _fused_rows(nc, npr, nbr_ids, base_rows, cu, pu, ids, pending,
-                extra_forb, window: int):
-    """Resolve + windowed mex from one gathered tile, without emission:
-    ``(lose, first, has)`` (the ``fused_step`` kernel). The distributed
-    fused steps use it: their emission follows the cross-shard exchange,
-    so it cannot fold into the row pass. ``first`` is -1 where ``has`` is
-    False; callers read it only where ``has`` is True."""
+def _fused_rows(ig: IPGCGraph, colors, rows, base_rows, cu, pu, ids,
+                pending, hub_tables, window: int):
+    """Resolve + windowed mex without emission: ``(lose, first, has)``,
+    the neighbours of ``ig.ell_idx[rows]`` gathered inside the
+    ``fused_step`` kernel (``rows`` None is every ELL row, a row >= the
+    ELL's row count is empty). ``hub_tables`` is None or the
+    ``(_hub_forbidden, _hub_lose)`` tables, which the kernel reads at each
+    row's hub slot; the hub lose flag of the pending rows is ORed into
+    ``lose``. The distributed fused steps use it: their emission follows
+    the cross-shard exchange, so it cannot fold into the row pass.
+    ``first`` is -1 where ``has`` is False; callers read it only where
+    ``has`` is True."""
     LAUNCH_COUNTS["fused"] += 1
-    lose, first = ops.fused_step(nc, npr, nbr_ids, base_rows, cu, pu, ids,
-                                 pending, extra_forb, window)
+    hub_forb, hub_lose = hub_tables or (None, None)
+    hub_slot = None if hub_tables is None else ig.hub_slot
+    lose, first = ops.fused_step(colors, ig.priority, ig.ell_idx, rows,
+                                 base_rows, cu, pu, ids, pending, hub_forb,
+                                 hub_lose, hub_slot, window)
     return lose, first, first >= 0
 
 

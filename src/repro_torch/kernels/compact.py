@@ -16,8 +16,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: flags per block of the count and write passes (compact::kTile)
-TILE = 2048
+#: flags per scan tile, and output slots per fill block (compact::kTile)
+TILE = 8192
 
 
 def compact_plain(mask: torch.Tensor, capacity: int, sentinel: int,
@@ -43,15 +43,18 @@ _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
 
 
 def scratch(n: int, device) -> torch.Tensor:
-    """Per-tile counts and offsets of a compaction over ``n`` flags."""
-    return torch.empty(max(-(-n // TILE), 1), dtype=torch.int32,
+    """The per-call state of a compaction over ``n`` flags
+    (``compact::state_words``): the tile ticket and one status word per
+    scan tile, 64 bits each. ``torch.empty`` launches nothing; the launch
+    function zeroes it with a ``cudaMemsetAsync`` on the same stream."""
+    return torch.empty(max(-(-n // TILE), 1) + 1, dtype=torch.int64,
                        device=device)
 
 
 def compact_cuda(mask: torch.Tensor, capacity: int, sentinel: int,
                  values: "torch.Tensor | None" = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernels (three launches: count, scan, write)."""
+    """Launch the CUDA kernel (one launch, after a memset of its state)."""
     n = mask.shape[0]
     dev = mask.device
     _build.require(mask, "compact mask", torch.bool, (n,), dev)
@@ -67,5 +70,5 @@ def compact_cuda(mask: torch.Tensor, capacity: int, sentinel: int,
                  scratch(n, dev).data_ptr(),
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "compact")
-    _build.KERNEL_LAUNCHES["compact"] += 3
+    _build.KERNEL_LAUNCHES["compact"] += 1
     return items, count

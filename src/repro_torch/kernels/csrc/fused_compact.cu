@@ -35,9 +35,9 @@
 // row, 16-byte ELL loads when K % 4 == 0, a warp ballot per pass that ends
 // each row at its first padding entry) with a register forbidden bitmap
 // and the lose flag ORed over the group with XOR shuffles; no (R, K) or
-// (R, W) tile is made. The emission is compact.cuh's three-launch ordered
+// (R, W) tile is made. The emission is compact.cuh's one-launch ordered
 // compaction over the `still` flags with the ids as values, so this call
-// is four launches.
+// is two launches (and the memset of the compaction's state).
 #include "compact.cuh"
 #include "rows.cuh"
 
@@ -162,17 +162,16 @@ int launch_rows(const int* ell, const RowArgs& a, int k_width,
 // n_graph_rows meaning an empty row. hub_forb ((n_hub+1) * window bytes),
 // hub_lose (n_hub+1) and hub_slot (n_graph_rows) are all null (no-hub
 // variant) or all set (hub variant). scratch holds
-// ceil(n_rows / compact::kTile) ints, at least one. Returns a cudaError_t
-// code.
+// compact::state_words(n_rows) 64-bit words. Returns a cudaError_t code.
 extern "C" int fused_compact_launch(
     const int* colors, const int* priority, const int* ell,
     const int* row_of, const int* base, const int* cu, const int* pu,
     const int* ids, const uint8_t* active, const uint8_t* pending,
     const uint8_t* hub_forb, const uint8_t* hub_lose, const int* hub_slot,
     int* new_c, int* new_b, uint8_t* still, int* items, int* count,
-    int* scratch, int64_t n_rows, int64_t n_graph_rows, int k_width,
-    int window, int pad, int n_hub, int64_t capacity, int n_sentinel,
-    int no_color, void* stream) {
+    unsigned long long* scratch, int64_t n_rows, int64_t n_graph_rows,
+    int k_width, int window, int pad, int n_hub, int64_t capacity,
+    int n_sentinel, int no_color, void* stream) {
   if (window < 1 || window > rows::kMaxWindow)
     return (int)cudaErrorInvalidValue;
   // (an empty hub_slot, of a graph with no rows, may come as null)

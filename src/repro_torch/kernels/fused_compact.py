@@ -43,12 +43,26 @@ def fused_compact_plain(nc, npr, nbr_ids, base, cu, pu, ids, active, pending,
     return new_c, new_base, need, items, count
 
 
-def _check_hub(hub_forb, hub_lose, hub_slot) -> bool:
+def check_hub(what: str, hub_forb, hub_lose, hub_slot) -> bool:
+    """Whether the hub tables are given (the hub variant); raises when
+    only some of them are."""
     given = [t is not None for t in (hub_forb, hub_lose, hub_slot)]
     if any(given) != all(given):
-        raise ValueError("fused_compact: hub_forb, hub_lose and hub_slot "
-                         "come together (the hub variant) or not at all")
+        raise ValueError(f"{what}: hub_forb, hub_lose and hub_slot come "
+                         "together (the hub variant) or not at all")
     return all(given)
+
+
+def hub_rows(hub_forb, hub_lose, hub_slot, rows
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (R, W) forbidden rows and (R,) lose flags of ``rows`` at their
+    hub slots, false where the slot is ``n_hub`` or the row is empty
+    (table row ``n_hub`` is never read)."""
+    n_hub = hub_forb.shape[0] - 1
+    slot, _ = gather_rows(hub_slot[:, None], rows, n_hub)
+    is_hub = slot[:, 0] < n_hub
+    return (hub_forb[slot[:, 0]] & is_hub[:, None],
+            hub_lose[slot[:, 0]] & is_hub)
 
 
 def fused_compact_rows_plain(colors, priority, ell_idx, rows, base, cu, pu,
@@ -61,12 +75,8 @@ def fused_compact_rows_plain(colors, priority, ell_idx, rows, base, cu, pu,
     pending."""
     nbr, ok = gather_rows(ell_idx, rows, colors.shape[0] - 1)
     extra = hl = None
-    if _check_hub(hub_forb, hub_lose, hub_slot):
-        n_hub = hub_forb.shape[0] - 1
-        slot, _ = gather_rows(hub_slot[:, None], rows, n_hub)
-        is_hub = slot[:, 0] < n_hub
-        extra = hub_forb[slot[:, 0]] & is_hub[:, None]
-        hl = hub_lose[slot[:, 0]] & is_hub
+    if check_hub("fused_compact", hub_forb, hub_lose, hub_slot):
+        extra, hl = hub_rows(hub_forb, hub_lose, hub_slot, rows)
     return fused_compact_plain(colors[nbr], priority[nbr], nbr, base, cu, pu,
                                ids, active & ok, pending & ok, extra, hl,
                                window, capacity=capacity,
@@ -82,12 +92,12 @@ _ARGTYPES = ((ctypes.c_void_p,) * 19
 def fused_compact_cuda(colors, priority, ell_idx, rows, base, cu, pu, ids,
                        active, pending, hub_forb, hub_lose, hub_slot,
                        window: int, *, capacity: int, n_sentinel: int):
-    """Launch the CUDA kernels (four launches: the row pass, then the
-    count, scan and write of the emission; three for zero rows)."""
+    """Launch the CUDA kernels (two launches: the row pass, then the
+    one-pass emission of ``compact.cuh``; one for zero rows)."""
     if not 1 <= window <= MAX_WINDOW:
         raise ValueError(f"fused_compact: the CUDA kernel takes windows of "
                          f"1..{MAX_WINDOW} colors, got {window}")
-    hub = _check_hub(hub_forb, hub_lose, hub_slot)
+    hub = check_hub("fused_compact", hub_forb, hub_lose, hub_slot)
     dev = colors.device
     r, rg = require_graph("fused_compact", colors, priority, ell_idx, rows,
                           dev)
@@ -122,5 +132,5 @@ def fused_compact_cuda(colors, priority, ell_idx, rows, base, cu, pu, ids,
                  window, colors.shape[0] - 1, n_hub, capacity, n_sentinel,
                  int(NO_COLOR), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_compact")
-    _build.KERNEL_LAUNCHES["fused_compact"] += 4 if r else 3
+    _build.KERNEL_LAUNCHES["fused_compact"] += 2 if r else 1
     return new_c, new_base, still, items, count

@@ -18,7 +18,8 @@ from repro_torch.kernels.frontier import (frontier_probe_cuda,
                                           frontier_probe_plain)
 from repro_torch.kernels.fused_compact import (fused_compact_cuda,
                                                fused_compact_rows_plain)
-from repro_torch.kernels.fused_step import fused_step_cuda, fused_step_plain
+from repro_torch.kernels.fused_step import (fused_step_cuda,
+                                            fused_step_rows_plain)
 from repro_torch.kernels.jpl_prio import jpl_extrema_cuda, jpl_extrema_plain
 from repro_torch.kernels.mex_window import mex_window_cuda, mex_window_plain
 
@@ -85,14 +86,19 @@ def fused_compact(colors, priority, ell_idx, rows, base, cu, pu, ids,
               capacity=capacity, n_sentinel=n_sentinel)
 
 
-def fused_step(nc, npr, nbr_ids, base, cu, pu, ids, pending, extra_forb,
-               window: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-row ``(lose, first)`` from one tile: the conflict flag of the
-    pending rows and the first free window index, -1 when the window is
-    full; ``extra_forb`` (R, W) bool or None (see ``kernels/fused_step.py``)."""
-    fn = fused_step_cuda if _on_cuda(nc) else fused_step_plain
-    return fn(nc, npr, nbr_ids, base, cu, pu, ids, pending, extra_forb,
-              window)
+def fused_step(colors, priority, ell_idx, rows, base, cu, pu, ids, pending,
+               hub_forb, hub_lose, hub_slot, window: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row ``(lose, first)`` of a distributed fused step: the conflict
+    flag of the pending rows (with the hub lose flag ORed in) and the first
+    free window index, -1 when the window is full. The graph operands are
+    those of ``conflict`` (the shard's ELL tile and rows); base, cu, pu, ids
+    int32[R], pending bool[R]; the hub variant takes the (n_hub+1, W)
+    forbidden and (n_hub+1,) lose tables and hub_slot int32[Rg] (see
+    ``kernels/fused_step.py``)."""
+    fn = fused_step_cuda if _on_cuda(colors) else fused_step_rows_plain
+    return fn(colors, priority, ell_idx, rows, base, cu, pu, ids, pending,
+              hub_forb, hub_lose, hub_slot, window)
 
 
 def jpl_extrema(npr: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -12,11 +12,11 @@ import torch
 import repro_torch
 from repro_torch.core.bfs import bfs, bfs_reference
 from repro_torch.kernels import _build, ops
-from repro_torch.kernels.compact import compact_plain
+from repro_torch.kernels.compact import TILE, compact_plain
 from repro_torch.kernels.conflict import conflict_rows_plain
 from repro_torch.kernels.frontier import frontier_probe_plain
 from repro_torch.kernels.fused_compact import fused_compact_rows_plain
-from repro_torch.kernels.fused_step import fused_step_plain
+from repro_torch.kernels.fused_step import fused_step_rows_plain
 from repro_torch.kernels.jpl_prio import jpl_extrema_plain
 from repro_torch.kernels.mex_window import mex_window_plain
 
@@ -100,7 +100,7 @@ def test_gather_kernels_match_plain(dev, rg, k, w, sparse, hub):
                                             n_sentinel=c["n"])
             assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
             assert _build.KERNEL_LAUNCHES["fused_compact"] == \
-                before + (4 if r else 3)
+                before + (2 if r else 1)
 
 
 @pytest.mark.parametrize("n", [1, 2047, 2049, 100_003])
@@ -116,7 +116,21 @@ def test_compact_matches_plain(dev, n, density):
     got = ops.compact(mask, n, n, values)
     want = compact_plain(mask, n, n, values)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert _build.KERNEL_LAUNCHES["compact"] == before + 4 * 3
+    assert _build.KERNEL_LAUNCHES["compact"] == before + 4
+
+
+@pytest.mark.parametrize("density", [1 / 1024, 0.5])
+def test_compact_many_tiles_repeats_bit_equal(dev, density):
+    """Over 10^4 scan tiles (far more than are resident at once) the
+    one-pass look-back gives the plain version's items and count on every
+    one of 20 repeats."""
+    n = 10_000 * TILE + 123
+    rng = np.random.default_rng(11)
+    mask = _t(rng.random(n) < density, dev)
+    want = compact_plain(mask, n, n)
+    for _ in range(20):
+        got = ops.compact(mask, n, n)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_wrappers_reject_bad_operands(dev):
@@ -213,34 +227,37 @@ def test_card_bfs_equals_cpu(dev, mode):
     np.testing.assert_array_equal(a.dist, bfs_reference(g, 0))
 
 
-@pytest.mark.parametrize("r,k,w", [(0, 8, 32), (1, 1, 32), (7, 8, 128),
-                                   (257, 40, 256), (3000, 128, 32),
-                                   (100, 3, 200)])
+_STEP = ("colors", "priority", "ell", "rows", "base", "cu", "pu", "ids",
+         "pending", "hub_forb", "hub_lose", "hub_slot")
+
+
+@pytest.mark.parametrize("rg,k", [(0, 8), (1, 1), (7, 8), (257, 40),
+                                  (3000, 128), (100, 3), (50, 12)])
+@pytest.mark.parametrize("w", [1, 32, 200, 256])
+@pytest.mark.parametrize("sparse", [False, True])
 @pytest.mark.parametrize("hub", [False, True])
-def test_fused_step_matches_plain(dev, r, k, w, hub):
-    rng = np.random.default_rng(r * 7 + k + w + hub)
-    nc = rng.integers(-2, 300, size=(r, k)).astype(np.int32)
-    npr = rng.integers(-1, 100, size=(r, k)).astype(np.int32)
-    nid = rng.integers(0, r + 1, size=(r, k)).astype(np.int32)
-    base = (rng.integers(0, 4, size=r) * w).astype(np.int32)
-    cu = rng.integers(-2, 300, size=r).astype(np.int32)
-    pu = rng.integers(0, 100, size=r).astype(np.int32)
-    ids = np.arange(r, dtype=np.int32)
-    pending = (rng.random(r) < 0.8) & (cu >= 0)
-    extra = None
-    if hub:
-        extra = rng.random((r, w)) < 0.25
-        extra[::3] = True                  # exhausted windows: first = -1
-    case = [_t(a, dev) for a in (nc, npr, nid, base, cu, pu, ids, pending,
-                                 extra)]
-    before = _build.KERNEL_LAUNCHES["fused_step"]
-    got = ops.fused_step(*case, w)
-    want = fused_step_plain(*case, w)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-    # zero rows launch nothing
-    assert _build.KERNEL_LAUNCHES["fused_step"] == before + (r > 0)
-    if hub and r:
-        assert (got[1][::3] == -1).all()
+def test_fused_step_matches_plain(dev, rg, k, w, sparse, hub):
+    """fused_step, which gathers the neighbours itself, against its plain
+    twin: rows None or sparse with sentinels, hub slots and no-hub, rows of
+    length 0, < K and K, R = 0, exhausted windows, and an unaligned ELL
+    tile (the one-entry loads)."""
+    c = gather_case(rg * 7 + k + w + 2 * sparse + hub, rg, k, sparse=sparse,
+                    hub=hub, window=w, lo=3)
+    r = len(c["cu"])
+    cases = [_gather_args(c, _STEP, dev)]
+    if rg > 1 and k % 4 == 0:
+        ell = _t(c["ell"], dev).reshape(-1)
+        shifted = torch.empty(ell.numel() + 1, dtype=ell.dtype, device=dev)
+        shifted[1:] = ell
+        cases.append(list(cases[0]))
+        cases[1][2] = shifted[1:].view(rg, k)
+    for args in cases:
+        before = _build.KERNEL_LAUNCHES["fused_step"]
+        got = ops.fused_step(*args, w)
+        want = fused_step_rows_plain(*_cpu(args), w)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+        # zero rows launch nothing
+        assert _build.KERNEL_LAUNCHES["fused_step"] == before + (r > 0)
 
 
 @pytest.mark.parametrize("algo,fused", [("ipgc", True), ("ipgc", False),

@@ -1,10 +1,13 @@
 """The ``fused_step`` kernel's plain version against the JAX oracle
 (``repro.kernels.ref.fused_step_ref``) and the Pallas kernel in interpret
-mode, the port's ``ipgc._fused_rows`` against ``repro``'s, and the port's
-partitioning (``graphs/partition.py``) against ``repro``'s. All state is
-int32/bool, so every comparison is exact; ``first`` is compared where
-``has`` is true (the reference's jnp path gives argmax 0 for an exhausted
-window, the kernels -1)."""
+mode, the port's ``ipgc._fused_rows`` (which hands the kernel the shard's
+ELL tile and rows to gather itself) against ``repro``'s on the gathered
+tiles, and the port's partitioning (``graphs/partition.py``) against
+``repro``'s. All state is int32/bool, so every comparison is exact;
+``first`` is compared where ``has`` is true (the reference's jnp path
+gives argmax 0 for an exhausted window, the kernels -1)."""
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +25,10 @@ from repro_torch.graphs import get_dataset as tget
 from repro_torch.graphs.partition import (balance_permutation,
                                           prepare_partition, shard_bounds)
 from repro_torch.kernels import ops
-from repro_torch.kernels.fused_step import fused_step_plain
+from repro_torch.kernels.fused_step import (fused_step_plain,
+                                            fused_step_rows_plain)
+
+from _gather_cases import gather_case, gathered
 
 # the test workers share the machine's cores: no intra-op thread pool
 torch.set_num_threads(1)
@@ -84,31 +90,72 @@ def test_fused_step_plain_matches_pallas_interpret(r, k):
     np.testing.assert_array_equal(got_f.numpy(), np.asarray(want_f))
 
 
+_STEP = ("colors", "priority", "ell", "rows", "base", "cu", "pu", "ids",
+         "pending", "hub_forb", "hub_lose", "hub_slot")
+
+
+def _step_args(c):
+    return [None if c[k] is None else torch.from_numpy(np.asarray(c[k]))
+            for k in _STEP]
+
+
 def test_ops_fused_step_runs_the_plain_version_on_cpu():
-    case = [None if a is None else torch.from_numpy(a)
-            for a in _case(50, 8, hub=True)]
+    """On CPU tensors ``ops.fused_step`` (the gathering signature) runs
+    the plain twin and launches nothing."""
+    c = gather_case(50, 50, 8, sparse=True, hub=True, window=W)
+    case = _step_args(c)
     before = ops.KERNEL_LAUNCHES["fused_step"]
     got = ops.fused_step(*case, W)
-    want = fused_step_plain(*case, W)
+    want = fused_step_rows_plain(*case, W)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert got[0].dtype == torch.bool and got[1].dtype == torch.int32
     assert ops.KERNEL_LAUNCHES["fused_step"] == before
 
 
+def _step_case(hub: bool, exhausted: bool, sparse: bool):
+    """Operands of ``_fused_rows`` from ``gather_case``: an exhausted case
+    has a one-color window (a neighbour colored at the base fills it) and
+    hub rows whose whole window is forbidden; otherwise no window fills."""
+    c = gather_case(5 + 2 * hub + sparse, 64, 16, sparse=sparse, hub=hub,
+                    window=1 if exhausted else W, lo=5)
+    if hub and not exhausted:
+        rng = np.random.default_rng(3)
+        c["hub_forb"][:-1] = rng.random(c["hub_forb"][:-1].shape) < 0.2
+    return c
+
+
+@pytest.mark.parametrize("sparse", [False, True])
 @pytest.mark.parametrize("exhausted", [False, True])
 @pytest.mark.parametrize("hub", [False, True])
-def test_fused_rows_matches_reference(hub, exhausted):
+def test_fused_rows_matches_reference(hub, exhausted, sparse):
     """``(lose, has, where(has, first, -1))`` of the port's ``_fused_rows``
-    equal ``repro``'s jnp branch; one logical ``fused`` pass per call."""
-    case = _case(64, 16, hub=hub, exhausted=exhausted, seed=5)
+    (the kernel gathers the rows of the ELL tile and reads the hub tables
+    at their slots) equal ``repro``'s jnp branch on the gathered tiles
+    with the hub lose flag ORed in, as the reference's distributed steps
+    do; one logical ``fused`` pass per call."""
+    c = _step_case(hub, exhausted, sparse)
+    w = c["window"]
+    g = gathered(c)
+    pend = c["pending"] & g["ok"]
     jl, jf, jh = jipgc._fused_rows(
-        None, *[None if a is None else jnp.asarray(a) for a in case], W,
-        "jnp")
+        None, *[None if a is None else jnp.asarray(a) for a in (
+            g["nc"], g["npr"], g["nbr"], c["base"], c["cu"], c["pu"],
+            c["ids"], pend, g["extra"])], w, "jnp")
+    jl = np.asarray(jl)
+    if hub:
+        jl = jl | (g["hl"] & pend)
+    t = {k: None if v is None else torch.from_numpy(np.asarray(v))
+         for k, v in c.items() if isinstance(v, np.ndarray) or v is None}
+    ig = types.SimpleNamespace(priority=t["priority"], ell_idx=t["ell"],
+                               hub_slot=t["hub_slot"])
+    tables = (t["hub_forb"], t["hub_lose"]) if hub else None
     with tipgc.LAUNCH_COUNTS.scope() as lc:
-        tl, tf, th = tipgc._fused_rows(
-            *[None if a is None else torch.from_numpy(a) for a in case], W)
+        tl, tf, th = tipgc._fused_rows(ig, t["colors"], t["rows"], t["base"],
+                                       t["cu"], t["pu"], t["ids"],
+                                       t["pending"], tables, w)
         assert lc.as_dict() == {"mex": 0, "conflict": 0, "compact": 0,
                                 "fused": 1}
-    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    np.testing.assert_array_equal(tl.numpy(), jl)
     np.testing.assert_array_equal(th.numpy(), np.asarray(jh))
     np.testing.assert_array_equal(_masked(tf.numpy(), th.numpy()),
                                   _masked(np.asarray(jf), np.asarray(jh)))

@@ -1,10 +1,11 @@
-"""The gathering signatures of the ``conflict`` and ``fused_compact``
-kernels: their plain twins (``conflict_rows_plain``,
-``fused_compact_rows_plain``, which ``kernels.ops`` runs on CPU tensors)
-against the pre-gathered plain versions and ``repro``'s oracles on the
-same numpy inputs; and the ELL left-packing (no real entry after a padding
-entry) that lets the kernels stop each row at its first padding entry.
-All state is int32/bool, so every comparison is exact."""
+"""The gathering signatures of the ``conflict``, ``fused_compact`` and
+``fused_step`` kernels: their plain twins (``conflict_rows_plain``,
+``fused_compact_rows_plain``, ``fused_step_rows_plain``, which
+``kernels.ops`` runs on CPU tensors) against the pre-gathered plain
+versions and ``repro``'s oracles on the same numpy inputs; and the ELL
+left-packing (no real entry after a padding entry) that lets the kernels
+stop each row at its first padding entry. All state is int32/bool, so
+every comparison is exact."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +23,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.conflict import conflict_plain, conflict_rows_plain
 from repro_torch.kernels.fused_compact import (fused_compact_plain,
                                                fused_compact_rows_plain)
+from repro_torch.kernels.fused_step import (fused_step_plain,
+                                            fused_step_rows_plain)
 
 from _gather_cases import gather_case, gathered
 
@@ -31,6 +34,7 @@ torch.set_num_threads(1)
 _conflict_ref = jax.jit(ref.conflict_ref)
 _fused_ref = jax.jit(ref.fused_compact_ref,
                      static_argnames=("window", "capacity", "n_sentinel"))
+_step_ref = jax.jit(ref.fused_step_ref, static_argnums=9)
 _OUTS = ("new_c", "new_base", "still", "items", "count")
 
 
@@ -151,6 +155,79 @@ def test_fused_compact_rows_never_read_the_non_hub_row():
         _eq(a, b, name)
 
 
+def _step_args(c):
+    return (_t(c["colors"]), _t(c["priority"]), _t(c["ell"]), _t(c["rows"]),
+            _t(c["base"]), _t(c["cu"]), _t(c["pu"]), _t(c["ids"]),
+            _t(c["pending"]), _t(c["hub_forb"]), _t(c["hub_lose"]),
+            _t(c["hub_slot"]))
+
+
+def _assert_step(c):
+    """``fused_step_rows_plain`` against ``fused_step_plain`` on the
+    gathered tiles and against ``repro``'s oracle, each with the hub lose
+    flag of the pending rows ORed in, and ``ops.fused_step`` on CPU
+    tensors against the twin."""
+    g = gathered(c)
+    w = c["window"]
+    pend = c["pending"] & g["ok"]
+    got = fused_step_rows_plain(*_step_args(c), w)
+    lose, first = fused_step_plain(
+        _t(g["nc"]), _t(g["npr"]), _t(g["nbr"]), _t(c["base"]), _t(c["cu"]),
+        _t(c["pu"]), _t(c["ids"]), _t(pend), _t(g["extra"]), w)
+    if g["hl"] is not None:
+        lose = lose | _t(g["hl"] & pend)
+    _eq(got[0], lose, "lose")
+    _eq(got[1], first, "first")
+    if len(pend):
+        extra = (g["extra"] if g["extra"] is not None
+                 else np.zeros((len(pend), w), bool))
+        want_l, want_f = _step_ref(
+            _j(g["nc"]), _j(g["npr"]), _j(g["nbr"]), _j(c["base"]),
+            _j(c["cu"]), _j(c["pu"]), _j(c["ids"]), _j(pend), _j(extra), w)
+        want_l = np.asarray(want_l)
+        if g["hl"] is not None:
+            want_l = want_l | (g["hl"] & pend)
+        _eq(got[0], want_l, "lose vs ref")
+        _eq(got[1], want_f, "first vs ref")
+    for a, b in zip(ops.fused_step(*_step_args(c), w), got):
+        _eq(a, b, "ops")
+    assert got[0].dtype == torch.bool and got[1].dtype == torch.int32
+    assert got[0].shape == got[1].shape == (len(pend),)
+    return got
+
+
+STEP_SHAPES = SHAPES + [(50, 3), (30, 13)]
+
+
+@pytest.mark.parametrize("window", [1, 32, 256])
+@pytest.mark.parametrize("hub", [False, True])
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("rg,k", STEP_SHAPES)
+def test_fused_step_rows_plain_matches_ref(rg, k, sparse, hub, window):
+    """Rows None and sparse rows with pads >= Rg, Rg = 0, hub and no-hub,
+    K % 4 == 0 and not; hub rows with an all-forbidden window (every third
+    hub) and one-color windows give exhausted rows (first = -1)."""
+    c = gather_case(rg * 11 + k + 5 * sparse + hub + window, rg, k,
+                    sparse=sparse, hub=hub, window=window, lo=7)
+    lose, first = _assert_step(c)
+    extra = gathered(c)["extra"]
+    if extra is not None:
+        assert (first.numpy()[extra.all(axis=1)] == -1).all()
+
+
+def test_fused_step_rows_never_read_the_non_hub_row():
+    """The kernel reads a hub table row only where the hub slot is below
+    n_hub; the twin equally ignores what row n_hub holds."""
+    c = gather_case(6, 60, 8, sparse=True, hub=True, window=32)
+    want = _assert_step(c)
+    c["hub_forb"] = c["hub_forb"].copy()
+    c["hub_lose"] = c["hub_lose"].copy()
+    c["hub_forb"][-1] = True
+    c["hub_lose"][-1] = True
+    for a, b in zip(fused_step_rows_plain(*_step_args(c), 32), want):
+        _eq(a, b)
+
+
 def test_sentinel_rows_are_empty():
     """A row >= Rg is neither active nor pending and loses nothing, even
     when its own flags say otherwise."""
@@ -167,6 +244,11 @@ def test_sentinel_rows_are_empty():
     assert not still[_t(bad)].any()
     _eq(new_c[_t(bad)], c["cu"][bad])
     _eq(new_b[_t(bad)], c["base"][bad])
+    # fused_step: an empty row loses nothing and its window is all free
+    c["pending"] = c["pending"] | bad
+    lose, first = fused_step_rows_plain(*_step_args(c), 32)
+    assert not lose[_t(bad)].any()
+    assert (first[_t(bad)] == 0).all()
 
 
 # --- the left-packing the kernels rely on ------------------------------------
