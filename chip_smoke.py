@@ -35,14 +35,43 @@ each failing the script on any error:
    visible card (``color(mode="dist-hybrid")``: ipgc fused, the no-hub
    ``fused_step`` over 50.8M rows); launch and exchange counts per run (1
    exchange per fused iteration and JPL round, 2 per two-phase one), a
-   verified coloring, and a replay of each under sync debug "error"; the
+   verified coloring, and a replay of each under sync debug "error" (the
+   kron jpl run stops at 200 of its 815 rounds, ``DIST_ROUND_CAP``, to
+   leave time for phase 6: its partial coloring is verified conflict-free
+   without completeness); the
    ``fused_step`` kernel row is timed at the kron S=4 dense shape, as
    shard 0's fused dense step hands it over;
 5. card vs CPU: kron at scale 1 colored (ipgc, jpl, spec-greedy) and
    searched (BFS, three modes) on the card and on the CPU gives identical
    results, and BFS equals the host oracle; the distributed Pipe at 1 and
    4 shards gives the same colors, iterations and trace on the card, on
-   the CPU and in the host engine on the same partitioned graph.
+   the CPU and in the host engine on the same partitioned graph; the
+   outlined regime on the card equals the outlined regime on the CPU in
+   every field but ``tti`` and ``total_seconds``, and the card's host loop
+   in colors, colors used, iterations and mode trace;
+6. outlined: on kron and europe, after each graph's path phase, the
+   outlined regime (``color(..., outline=True)``: one chunk per capacity
+   bucket, each trip a replay of a captured CUDA graph, ``exec/chunk.py``)
+   with the four colorings of phase 3, each run twice on the session (cold:
+   the trips are captured; warm: replays only). Each run must equal its
+   host loop of phase 3 in colors, iterations and mode trace, give a
+   verified coloring (the cold run's is verified, the warm run's equals
+   it), keep ``host_dispatches <= len(caps) + 1``, and the warm run must
+   capture nothing. Per run: host dispatches, counter reads
+   (one per trip), graphs captured and their capture seconds, coloring
+   seconds beside the host loop's, peak memory, and the kernel launches.
+   The wrappers count a launch when their Python runs, so in this regime
+   once per warm-up and capture (``wrapper_launches``, cold run only); the
+   launches of the trips that ran are the launches each captured trip
+   holds times the replays of that trip (``exec.chunk.REPLAYED_LAUNCHES``,
+   ``replayed_launches``), and every kernel of the coloring must have some.
+   Each captured trip is replayed once more with CUDA's sync debug mode at
+   "error" (the regime replays every trip so too). Then two whole-run
+   ``torch.profiler`` traces of kron ipgc two-phase, host loop and
+   outlined (warm): the device's busy share over the run, device time by
+   op name (this port's kernels and the rest), and launches and device
+   operations per iteration. The fused family wins ``fused=None`` on CUDA
+   where it is faster warm on both graphs (``outlined.fused_rule``).
 
 BFS does not run on europe at full size: its road-like chain needs on the
 order of millions of levels from any source.
@@ -53,6 +82,7 @@ The line before the last is the kernels' JSON summary; the last line is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -78,6 +108,7 @@ from repro_torch.core.policy import make_policy  # noqa: E402
 from repro_torch.core.worklist import (Worklist,  # noqa: E402
                                        bucket_capacities, pick_bucket,
                                        resize_items)
+from repro_torch.exec import chunk as chunk_mod  # noqa: E402
 from repro_torch.exec import default_session  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.compact import TILE as COMPACT_TILE  # noqa: E402
@@ -130,8 +161,12 @@ SOURCES = {
 KRON_SHARDS = 4
 
 
+_T0 = time.perf_counter()
+
+
 def log(**fields) -> None:
-    print(json.dumps(fields), flush=True)
+    """One JSON line; ``t`` is the seconds since the script started."""
+    print(json.dumps({**fields, "t": time.perf_counter() - _T0}), flush=True)
 
 
 # --- timing and bounds ---------------------------------------------------------
@@ -788,12 +823,14 @@ def sparse_row(rec: Recorder, reps: int) -> dict:
 
 
 def path_phase(g, build_s: float, rows: "dict | None" = None,
-               reps: int = 10) -> list[dict]:
+               reps: int = 10, results: "dict | None" = None) -> list[dict]:
     """Every coloring path through ``repro_torch.color`` on ``g``; returns
     the kernel launches of each run. The ipgc and jpl Pipes are replayed
     with the sync check. With ``rows`` (the kernels line's rows), the ipgc
     runs record the sparse steps' calls of ``conflict`` and
-    ``fused_compact`` and time each at its most-used capacity bucket."""
+    ``fused_compact`` and time each at its most-used capacity bucket. With
+    ``results``, each run's ``ColoringResult`` goes there under
+    ``(algo, fused)``."""
     launches = []
     replay_ig = repro_torch.prepare(g)
     for algo, fused, need in COLORINGS:
@@ -822,6 +859,8 @@ def path_phase(g, build_s: float, rows: "dict | None" = None,
         stats = repro_torch.verify_coloring(g, r.colors, context=what)
         alg.check_invariants(r, g)
         launches.append(counts)
+        if results is not None:
+            results[(algo, fused)] = r
         log(phase="path", graph=g.name, nodes=g.n_nodes, edges=g.n_edges,
             layout=g.layout.kind, ell_width=g.ell_width,
             build_seconds=build_s, algo=algo, fused=fused,
@@ -888,6 +927,10 @@ def baselines_phase(g) -> None:
 #: (algorithm, fused, exchanges per iteration) of each distributed run
 DIST_RUNS = (("ipgc", True, 1), ("ipgc", False, 2), ("spec-greedy", None, 1),
              ("jpl", None, 1))
+#: rounds the kron S=4 jpl run stops at (its full depth is 815 rounds,
+#: 77 s, which the outlined phase's time needs): a partial JPL coloring
+#: is final where it is set, so it is verified without completeness
+DIST_ROUND_CAP = {"jpl": 200}
 
 
 def dist_kernels(algo: str, fused) -> tuple:
@@ -958,6 +1001,9 @@ def dist_phase(g, devices, runs, record: bool = False,
         alg = get_algorithm(algo)
         rec = (Recorder("fused_step")
                if record and (algo, fused) == ("ipgc", True) else None)
+        max_iter = 10_000
+        if devices is not None:
+            max_iter = DIST_ROUND_CAP.get(algo, max_iter)
         start_counts()
         with (rec or contextlib.nullcontext()), \
                 ipgc.LAUNCH_COUNTS.scope() as passes, \
@@ -968,7 +1014,8 @@ def dist_phase(g, devices, runs, record: bool = False,
                                       fused=fused)
             else:
                 r = repro_torch.color_distributed(g, devices=devices,
-                                                  algo=algo, fused=fused)
+                                                  algo=algo, fused=fused,
+                                                  max_iter=max_iter)
             wall = time.perf_counter() - t0
             pass_counts = passes.as_dict()
             n_exchanges = exchanges["color_psum"]
@@ -986,10 +1033,12 @@ def dist_phase(g, devices, runs, record: bool = False,
         if n_exchanges != per_iter * r.iterations:
             raise AssertionError(f"{what}: {n_exchanges} exchanges in "
                                  f"{r.iterations} iterations")
-        stats = repro_torch.verify_coloring(g, r.colors, context=what)
+        stats = repro_torch.verify_coloring(
+            g, r.colors, context=what,
+            require_complete=r.iterations < max_iter)
         alg.check_invariants(r, g)
         launches.append(counts)
-        log(phase="dist", graph=g.name, nodes=g.n_nodes, edges=g.n_edges,
+        log(phase="dist", graph=g.name, max_iter=max_iter, nodes=g.n_nodes, edges=g.n_edges,
             shards=len(mesh), devices=[str(d) for d in mesh],
             partition_seconds=partition_s, padded_nodes=g2.n_nodes,
             algo=algo, fused=fused, iterations=r.iterations,
@@ -1001,7 +1050,8 @@ def dist_phase(g, devices, runs, record: bool = False,
             peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
         window = adaptive_window(g2) if alg.uses_window else 128
         colors, iters, trace = replay_dist_sync_free(
-            replay_ig, alg, mesh, window, fused, relabel, g.n_nodes)
+            replay_ig, alg, mesh, window, fused, relabel, g.n_nodes,
+            max_iter)
         if not (np.array_equal(colors, r.colors) and iters == r.iterations
                 and trace == r.mode_trace):
             raise AssertionError(f"{what}: the sync-checked replay differs "
@@ -1034,6 +1084,208 @@ def fused_step_row(ig, mesh, window: int, sparse: "dict | None",
     return row
 
 
+# --- phase 6 -------------------------------------------------------------------
+
+#: the names of this port's CUDA kernels, as the profiler reports them
+OWN_KERNELS = ("mex_window_kernel", "conflict_kernel", "scan_kernel",
+               "fused_rows_kernel", "jpl_extrema_kernel", "frontier_kernel",
+               "fused_step_kernel")
+
+
+def chunk_runners(g, algo: str) -> list:
+    """The chunk runners the default session keeps for ``g`` prepared for
+    ``algo`` (in the prep entry: ``(g, ig, window, runners)``)."""
+    alg = get_algorithm(algo)
+    return [r for key, entry in default_session().cache.items()
+            if key[0] == "prep" and entry[0] is g and key[2] == alg
+            for r in entry[3].values()]
+
+
+def replay_sync_checked(g, algo: str) -> int:
+    """Replay every captured trip of ``g``'s runners once more with CUDA's
+    sync debug mode at "error" (after the run: the trips change nothing
+    but the counters, which the next run resets). Returns the replays."""
+    replays = 0
+    for runner in chunk_runners(g, algo):
+        for trip in runner.trips.values():
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                trip.graph.replay()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            replays += 1
+    torch.cuda.synchronize()
+    return replays
+
+
+def outlined_phase(g, host: dict) -> dict:
+    """The outlined regime on ``g`` for every coloring, cold and warm, each
+    run equal to its host loop ``host[(algo, fused)]``; returns the warm
+    seconds and the replayed launches per coloring."""
+    caps = bucket_capacities(g.n_nodes, ratio=2)
+    out = {}
+    for algo, fused, need in COLORINGS:
+        alg = get_algorithm(algo)
+        want = host[(algo, fused)]
+        what = f"{g.name} outlined {algo} fused={fused}"
+        for run in ("cold", "warm"):
+            start_counts()
+            with chunk_mod.REPLAYED_LAUNCHES.scope() as rl, \
+                    chunk_mod.CHUNK_COUNTS.scope() as cc:
+                t0 = time.perf_counter()
+                r = repro_torch.color(g, algo=algo, fused=fused, outline=True)
+                wall = time.perf_counter() - t0
+                replayed, counts = rl.as_dict(), cc.as_dict()
+            wrapper = _build.KERNEL_LAUNCHES.as_dict()
+            if not (np.array_equal(r.colors, want.colors)
+                    and (r.n_colors, r.iterations, r.mode_trace)
+                    == (want.n_colors, want.iterations, want.mode_trace)):
+                raise AssertionError(f"{what} ({run}): differs from the host "
+                                     "loop")
+            if r.host_dispatches > len(caps) + 1:
+                raise AssertionError(f"{what}: {r.host_dispatches} host "
+                                     f"dispatches for {len(caps)} buckets")
+            if counts["reads"] != r.iterations:
+                raise AssertionError(f"{what}: {counts['reads']} counter "
+                                     f"reads in {r.iterations} iterations")
+            missing = [k for k in need if replayed[k] == 0
+                       or (run == "cold" and wrapper[k] == 0)]
+            if missing:
+                raise AssertionError(f"{what} ({run}): kernels {missing} "
+                                     "never launched")
+            if run == "warm" and counts["graphs"]:
+                raise AssertionError(f"{what}: the warm run captured "
+                                     f"{counts['graphs']} graphs")
+            # the warm run's colors equal the cold run's, verified here
+            if run == "cold":
+                stats = repro_torch.verify_coloring(g, r.colors,
+                                                    context=what)
+            alg.check_invariants(r, g)
+            log(phase="outlined", graph=g.name, nodes=g.n_nodes, algo=algo,
+                fused=fused, run=run, iterations=r.iterations,
+                n_colors=r.n_colors, host_dispatches=r.host_dispatches,
+                buckets=len(caps), counter_reads=counts["reads"],
+                graphs_captured=counts["graphs"],
+                capture_seconds=counts["capture_us"] / 1e6,
+                color_seconds=r.total_seconds, call_seconds=wall,
+                host_loop_seconds=want.total_seconds,
+                replayed_launches={k: v for k, v in replayed.items() if v},
+                wrapper_launches={k: v for k, v in wrapper.items() if v},
+                verify=stats, identical_to_host_loop=True,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+        n_trips = replay_sync_checked(g, algo)
+        log(phase="outlined.sync_checked_replay", graph=g.name, algo=algo,
+            fused=fused, graphs_replayed=n_trips, clean=True)
+        out[(algo, fused)] = dict(seconds=r.total_seconds, launches=replayed)
+        for runner in chunk_runners(g, algo):
+            runner.trips.clear()        # free the pools before the next
+        torch.cuda.empty_cache()
+    return out
+
+
+#: coarse classes of device operations, by a substring of their names
+OP_CLASSES = (("own kernel", OWN_KERNELS), ("index_put (scatter)",
+              ("index_put",)), ("scatter/reduce", ("scatter", "reduce")),
+              ("index (gather)", ("index_elementwise", "index_kernel")),
+              ("copy", ("copy",)), ("memset", ("memset",)),
+              ("memcpy", ("memcpy",)), ("scan", ("scan", "cumsum")))
+
+
+def op_class(name: str) -> str:
+    low = name.lower()
+    return next((c for c, keys in OP_CLASSES
+                 if any(k.lower() in low for k in keys)), "elementwise/other")
+
+
+def trace_summary(prof, iterations: int) -> dict:
+    """A whole-run profiler trace, summarised: the device's busy share of
+    the run (the union of its operations' intervals over the span of the
+    ``coloring_run`` range), device time by op name (this port's kernels,
+    the rest), and device operations, kernels and host launch calls per
+    iteration."""
+    events = prof.events()
+    run = next(e for e in events if e.name == "coloring_run"
+               and e.device_type == torch.autograd.DeviceType.CPU)
+    lo, hi = run.time_range.start, run.time_range.end
+    # the device timeline also carries the range itself as an annotation
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.name != "coloring_run"
+           and not getattr(e, "is_user_annotation", False)]
+    spans = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi))
+                   for e in dev)
+    busy, end = 0.0, lo
+    for a, b in spans:
+        if b > max(a, end):
+            busy += b - max(a, end)
+            end = b
+    by_name: dict = {}
+    for e in dev:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    own = {k: v for k, v in by_name.items()
+           if any(n in k for n in OWN_KERNELS)}
+    rest = {k: v for k, v in by_name.items() if k not in own}
+    kernels = [e for e in dev if not any(
+        w in e.name.lower() for w in ("memset", "memcpy"))]
+    host_calls = {}
+    for e in events:
+        if e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                      "cuLaunchKernel", "cudaMemsetAsync",
+                      "cudaMemcpyAsync", "cudaGraphLaunch"):
+            host_calls[e.name] = host_calls.get(e.name, 0) + 1
+    by_class: dict = {}
+    for name, (t, _) in by_name.items():
+        c = op_class(name)
+        by_class[c] = by_class.get(c, 0.0) + t
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    it = max(iterations, 1)
+    return dict(
+        run_us=hi - lo, device_busy_us=busy,
+        device_busy_share=busy / max(hi - lo, 1e-9),
+        own_kernels_us=sum(v[0] for v in own.values()),
+        other_device_us=sum(v[0] for v in rest.values()),
+        device_ops=len(dev), device_ops_per_iteration=len(dev) / it,
+        kernels_per_iteration=len(kernels) / it,
+        host_launch_calls=host_calls,
+        host_launch_calls_per_iteration=sum(host_calls.values()) / it,
+        device_us_by_class=by_class,
+        top_device_ops=[[k[:90], round(v[0], 1), v[1]] for k, v in top])
+
+
+def fused_rule(outlined: dict) -> None:
+    """Which ipgc family ran faster outlined (warm) on each graph: the
+    fused one takes ``fused=None`` on CUDA where it won on every graph."""
+    by = {name: {fam: o[("ipgc", fam)]["seconds"] for fam in (False, True)}
+          for name, o in outlined.items()}
+    log(phase="outlined.fused_rule", warm_seconds={
+        name: {"two_phase": v[False], "fused": v[True]}
+        for name, v in by.items()},
+        fused_faster_everywhere=all(v[True] < v[False] for v in by.values()),
+        rule_in_code=repro_torch.exec.session.OUTLINED_FUSED["cuda"])
+
+
+def profile_phase(g) -> None:
+    """Whole-run traces of kron ipgc two-phase in each regime: the host
+    loop, then the outlined regime warm (its trips captured by a run just
+    before the trace)."""
+    repro_torch.color(g, fused=False, outline=True)
+    for regime in ("host", "outlined"):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            with torch.profiler.record_function("coloring_run"):
+                r = repro_torch.color(g, fused=False,
+                                      outline=regime == "outlined")
+            torch.cuda.synchronize()
+        log(phase="profile", graph=g.name, algo="ipgc", fused=False,
+            regime=regime, iterations=r.iterations,
+            color_seconds=r.total_seconds,
+            **trace_summary(prof, r.iterations))
+        del prof
+
+
 # --- phase 5 -------------------------------------------------------------------
 
 def card_vs_cpu_phase() -> None:
@@ -1050,6 +1302,26 @@ def card_vs_cpu_phase() -> None:
         log(phase="card_vs_cpu", graph=g.name, nodes=g.n_nodes, algo=algo,
             fused=fused, iterations=a.iterations, n_colors=a.n_colors,
             identical=True)
+    # the outlined regime: card = CPU in every field but the times, and
+    # = the card's host loop in colors, colors used, iterations and trace
+    fields = [f.name for f in dataclasses.fields(repro_torch.ColoringResult)
+              if f.name not in ("colors", "tti", "total_seconds")]
+    for algo, fused, _ in COLORINGS:
+        a = repro_torch.color(g, algo=algo, fused=fused, outline=True)
+        b = repro_torch.color(g, algo=algo, fused=fused, outline=True,
+                              device="cpu")
+        h = repro_torch.color(g, algo=algo, fused=fused, outline=False)
+        if not (np.array_equal(a.colors, b.colors)
+                and all(getattr(a, f) == getattr(b, f) for f in fields)
+                and np.array_equal(a.colors, h.colors)
+                and (a.n_colors, a.iterations, a.mode_trace)
+                == (h.n_colors, h.iterations, h.mode_trace)):
+            raise AssertionError(f"outlined {algo} fused={fused}: the card, "
+                                 "the CPU and the card's host loop differ")
+        log(phase="card_vs_cpu.outlined", graph=g.name, algo=algo,
+            fused=fused, iterations=a.iterations,
+            host_dispatches=a.host_dispatches, counts=a.counts,
+            identical_cpu=True, identical_host_loop=True)
     oracle = bfs_mod.bfs_reference(g, BFS_SOURCE)
     for mode in ("hybrid", "bottomup", "topdown"):
         a = bfs_mod.bfs(g, BFS_SOURCE, mode=mode)
@@ -1104,8 +1376,12 @@ def main() -> int:
     del kron_ig
     torch.cuda.empty_cache()
 
-    runs = path_phase(kron, kron_s, rows) + bfs_phase(kron)
+    kron_host: dict = {}
+    runs = path_phase(kron, kron_s, rows, results=kron_host) + bfs_phase(kron)
     baselines_phase(kron)
+    outlined = {kron.name: outlined_phase(kron, kron_host)}
+    profile_phase(kron)
+    del kron_host
     default_session().cache.clear()
     torch.cuda.empty_cache()
     dist_runs, ctx = dist_phase(kron, [dev] * KRON_SHARDS, DIST_RUNS,
@@ -1116,7 +1392,10 @@ def main() -> int:
     default_session().cache.clear()
     torch.cuda.empty_cache()
     road, road_s = build_graph(ROAD)
-    runs += path_phase(road, road_s)
+    road_host: dict = {}
+    runs += path_phase(road, road_s, results=road_host)
+    outlined[road.name] = outlined_phase(road, road_host)
+    del road_host
     default_session().cache.clear()
     torch.cuda.empty_cache()
     runs += dist_phase(road, None, DIST_RUNS[:1])[0]
@@ -1127,9 +1406,13 @@ def main() -> int:
     if any(c == 0 for c in totals.values()):
         raise AssertionError(f"a kernel never launched on the path: {totals}")
 
+    fused_rule(outlined)
     card_vs_cpu_phase()
     for name, row in rows.items():
         row["launches"] = totals[SOURCES[name][2]]
+        row["outlined_launches"] = sum(
+            o["launches"][SOURCES[name][2]] for by in outlined.values()
+            for o in by.values())
     reset_peak()
     log(phase="done", seconds=time.perf_counter() - t_start,
         peak_mem_gb=_peak_bytes / 2**30)

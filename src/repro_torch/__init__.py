@@ -8,6 +8,8 @@ hand-written kernels of ``repro_torch.kernels``, on the CPU in their plain
 PyTorch versions.
 """
 from repro_torch.core import (ColoringResult, color, coloring_stats,  # noqa: F401
-                              color_distributed, prepare, verify_coloring)
+                              color_distributed, color_outlined,
+                              color_outlined_hybrid, outlined, prepare,
+                              set_outline_default, verify_coloring)
 from repro_torch.exec import ExecutionSpec, Session  # noqa: F401
 from repro_torch.graphs import get_dataset  # noqa: F401

@@ -1,7 +1,9 @@
 """The paper's primary contribution: hybrid (topology+data-driven) worklist
 scheduling with a persistent worklist, applied to IPGC and to the other
 registered colorers (``repro/core``); the paper's baselines; hybrid BFS."""
-from repro_torch.core.engine import ColoringResult, color  # noqa: F401
+from repro_torch.core.engine import (ColoringResult, color,  # noqa: F401
+                                     color_outlined, color_outlined_hybrid,
+                                     outlined, set_outline_default)
 from repro_torch.core.worklist import (Worklist, bucket_capacities,  # noqa: F401
                                        full_worklist)
 from repro_torch.core.verify import (InvalidColoringError,  # noqa: F401

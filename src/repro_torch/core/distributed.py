@@ -534,7 +534,8 @@ def color_distributed(g, *, n_shards: "int | None" = None, devices=None,
                       policy=None, collect_tti: bool = False,
                       fused: "bool | None" = True, balance: bool = True,
                       layout: "str | object | None" = None,
-                      exchange: str = "dense", session=None):
+                      exchange: str = "dense", session=None,
+                      steps_cache: "dict | None" = None):
     """Sharded hybrid Pipe: the host loop over the distributed
     steps (``Session.run`` with ``ExecutionSpec(regime="dist")``).
 
@@ -550,17 +551,24 @@ def color_distributed(g, *, n_shards: "int | None" = None, devices=None,
     The mesh: ``devices`` (one per shard), else ``n_shards`` shards on the
     kind of ``device`` (see ``resolve_mesh``; ``device=None`` is CUDA).
     ``algo`` must name a shard-safe algorithm. ``session`` defaults to the
-    process-default session of the mesh's first device.
+    process-default session of the mesh's first device. ``steps_cache``
+    (the reference's compile-cache argument): the dict becomes the backing
+    store of a session of its own, so passing the same dict across calls
+    reuses the partitioned graph and the steps; not with ``session``.
     """
-    from repro_torch.exec import ExecutionSpec, default_session
+    from repro_torch.exec import ExecutionSpec, Session, default_session
     spec = ExecutionSpec(
         regime="dist", mode=mode, algo=algo, layout=layout, h=h,
         window=window, bucket_ratio=bucket_ratio, max_iter=max_iter,
         priority=priority, fused=fused, n_shards=n_shards, balance=balance,
         exchange=exchange)
-    if session is None:
-        if device is None and devices is not None:
-            device = list(devices)[0]
+    if device is None and devices is not None:
+        device = list(devices)[0]
+    if steps_cache is not None:
+        if session is not None:
+            raise ValueError("pass steps_cache or session, not both")
+        session = Session(device, cache=steps_cache)
+    elif session is None:
         session = default_session(device)
     return session.run(spec, g, policy=policy, collect_tti=collect_tti,
                        devices=devices)

@@ -1,11 +1,21 @@
 """Hybrid coloring engine — the host-side analogue of IrGL's ``Pipe``
-(``repro/core/engine.py``, host regime).
+(``repro/core/engine.py``).
 
-``color`` is the host-loop Pipe: the steps keep static shapes and the
-host reads back one scalar (``count``) per iteration, picks dense or
-sparse (the paper's H policy) and a capacity bucket, and dispatches the
-step. It is a thin dispatcher over ``repro_torch.exec.Session``, which
-owns the device and the prepared-graph cache.
+Two dispatch regimes (DESIGN.md §4):
+
+* ``color`` — the host-loop Pipe: the steps keep static shapes and the
+  host reads back one scalar (``count``) per iteration, picks dense or
+  sparse (the paper's H policy) and a capacity bucket, and dispatches the
+  step.
+* ``color_outlined_hybrid`` — the outlined Pipe: iterations run as chunks,
+  one per capacity bucket, whose trips are dense or sparse as the count
+  compares with the policy's threshold, fixed for the chunk; the host
+  re-enters the Pipe only when the count crosses a bucket boundary or the
+  loop drains (``exec/chunk.py``: on a CUDA device each trip is a replay
+  of a captured CUDA graph).
+
+Both are thin dispatchers over ``repro_torch.exec.Session``, which owns the
+device and the prepared-graph cache.
 
 The worklist state is maintained by *both* steps (the paper's
 contribution), so a mode switch costs nothing: the sparse phase only ever
@@ -13,12 +23,45 @@ contribution), so a mode switch costs nothing: the sparse phase only ever
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
+import time
 
 import numpy as np
 
 from repro_torch.core.policy import Policy
 from repro_torch.graphs.csr import Graph
+
+# Outlining as the default path is gated behind this env flag, read once at
+# import: with REPRO_OUTLINE_HYBRID=1, ``color`` routes through the outlined
+# regime. Callers toggle it after import with ``set_outline_default`` or
+# the ``outlined`` context manager.
+_OUTLINE_ENV = os.environ.get("REPRO_OUTLINE_HYBRID", "0") == "1"
+_outline_override: "bool | None" = None
+
+
+def set_outline_default(value: "bool | None") -> None:
+    """Override (or with ``None`` reset) the outline-by-default routing."""
+    global _outline_override
+    _outline_override = value
+
+
+def outline_default() -> bool:
+    return _OUTLINE_ENV if _outline_override is None else _outline_override
+
+
+@contextlib.contextmanager
+def outlined(value: "bool | None"):
+    """Scoped ``set_outline_default``: restores the previous override
+    (including the no-override ``None``) on exit."""
+    global _outline_override
+    prev = _outline_override
+    set_outline_default(value)
+    try:
+        yield
+    finally:
+        _outline_override = prev
 
 
 @dataclasses.dataclass
@@ -27,10 +70,14 @@ class ColoringResult:
     n_colors: int
     iterations: int
     mode_trace: str             # 'D'/'S' per iteration
-    counts: list[int]           # worklist size per iteration
-    tti: list[float]            # wall seconds per iteration (collect_tti)
+    counts: list[int]           # worklist size per host dispatch: one entry
+    #                             per iteration for the host loop, one per
+    #                             chunk for the outlined regime
+    tti: list[float]            # wall seconds (collect_tti), same
+    #                             granularity as counts
     total_seconds: float
-    host_dispatches: int = 0    # step dispatches from the host loop
+    host_dispatches: int = 0    # iterations (host loop) or chunks
+    #                             (outlined) the host dispatched
     # dist regime only (DESIGN.md §13): per-iteration exchange-path trace
     # ('d' dense) and the bytes each iteration moved per shard
     exchange_trace: str = ""
@@ -80,8 +127,10 @@ def color(
     priority: str = "hash",
     policy: "Policy | None" = None,
     collect_tti: bool = False,
-    fused: "bool | None" = None,   # None = the host loop's two-phase steps
-    outline: bool = False,         # the outlined regime is not ported yet
+    fused: "bool | None" = None,   # None = the regime's default (host
+    #                                loop two-phase, outlined per device,
+    #                                dist fused)
+    outline: "bool | None" = None,  # None -> set_outline_default()/env
     layout: "str | object | None" = None,
     device=None,                   # None = the CUDA device
     n_shards: "int | None" = None,  # dist-* modes: shard count
@@ -90,7 +139,9 @@ def color(
 ) -> ColoringResult:
     """Color ``g`` (a host ``Graph``, or an ``IPGCGraph`` prepared on
     ``device``) with the hybrid Pipe on the process-default session of
-    ``device``. ``mode="dist-*"`` runs the distributed Pipe over
+    ``device``: the host loop, or with ``outline`` (None consults
+    ``outline_default()``) the outlined regime. ``mode="dist-*"`` runs the
+    distributed Pipe over
     ``devices`` (else ``n_shards`` shards on ``device``'s kind; see
     ``core.distributed.resolve_mesh``); with ``devices`` and no
     ``device`` the session is that of the first shard's device."""
@@ -104,3 +155,82 @@ def color(
     return default_session(device).run(spec, g, policy=policy,
                                        collect_tti=collect_tti,
                                        devices=devices)
+
+
+# ---------------------------------------------------------------------------
+# outlined Pipe (iteration outlining with bucket exits)
+# ---------------------------------------------------------------------------
+
+
+def color_outlined_hybrid(
+    g,
+    *,
+    mode: str = "hybrid",
+    algo: "str | object" = "ipgc",
+    h: float = 0.6,
+    window: "int | str" = "auto",
+    bucket_ratio: int = 2,
+    max_iter: int = 10_000,
+    priority: str = "hash",
+    policy: "Policy | None" = None,
+    collect_tti: bool = False,
+    fused: "bool | None" = None,
+    layout: "str | object | None" = None,
+    device=None,
+) -> ColoringResult:
+    """Outlined hybrid Pipe: at most ``len(caps) + 1`` host dispatches.
+
+    Iteration for iteration equal to the host-loop ``color`` with the same
+    ``fused`` setting and a fixed-H policy: within a chunk at bucket
+    ``caps[i]`` the count stays in ``(caps[i+1], caps[i]]``, so the host
+    loop would have picked the same bucket, and a trip's
+    ``count > threshold`` is the comparison the host policy makes.
+    ``counts`` and ``tti`` are recorded per chunk, and ``mode_trace`` is
+    rebuilt per chunk from the dense/sparse trip counters on the device
+    (exact for monotone policies). AutoTuned policies refresh their
+    threshold between chunks (``observe_chunk``). ``fused=None`` resolves
+    per device type (``exec.session.OUTLINED_FUSED``).
+    """
+    from repro_torch.exec import ExecutionSpec, default_session
+    spec = ExecutionSpec(
+        regime="outlined", mode=mode, algo=algo, layout=layout, h=h,
+        window=window, bucket_ratio=bucket_ratio, max_iter=max_iter,
+        priority=priority, fused=fused)
+    return default_session(device).run(spec, g, policy=policy,
+                                       collect_tti=collect_tti)
+
+
+def color_outlined(
+    g: Graph,
+    *,
+    window: "int | str" = "auto",
+    max_iter: int = 10_000,
+    priority: str = "hash",
+    device=None,
+) -> ColoringResult:
+    """IrGL's iteration outlining, dense-only: the whole Pipe is one chunk
+    of two-phase IPGC dense trips, with no capacity bucketing and no H
+    policy (``mode_trace`` is ``"O"`` per iteration, one host dispatch, no
+    ``counts``). The minimal form of the outlining idiom; the general
+    regime is ``color_outlined_hybrid``."""
+    from repro_torch.algos import get_algorithm
+    from repro_torch.core import ipgc
+    from repro_torch.exec.chunk import ChunkRunner
+    if window == "auto":
+        window = adaptive_window(g)
+    ig = ipgc.prepare(g, priority=priority, device=device)
+    n = ig.n_nodes
+    t0 = time.perf_counter()
+    runner = ChunkRunner(ig, get_algorithm("ipgc"), fused=False,
+                         window=window, force_hub=ipgc.force_hub_enabled(),
+                         capacity=n)
+    runner.reset()
+    iters = runner.run(n, branch="dense", thresh=-1, low=0,
+                       max_iter=max_iter, count=n, it=0).it
+    colors = runner.colors[:n].cpu().numpy()
+    total = time.perf_counter() - t0
+    return ColoringResult(colors=colors,
+                          n_colors=int(colors.max()) + 1 if n else 0,
+                          iterations=iters, mode_trace="O" * iters,
+                          counts=[], tti=[], total_seconds=total,
+                          host_dispatches=1)

@@ -86,6 +86,13 @@ def pick_bucket(caps: list[int], count: int) -> int:
     return best
 
 
+def chunk_lower_bounds(caps: list[int]) -> list[int]:
+    """Exit thresholds of the outlined chunks: the chunk at ``caps[i]``
+    runs while ``count > caps[i+1]`` (0 for the last bucket), so the host
+    re-enters only at bucket boundaries."""
+    return [*caps[1:], 0]
+
+
 def resize_block(items: torch.Tensor, capacity: int,
                  n_nodes: int) -> torch.Tensor:
     """Resize one compacted items block to a new capacity: shrinking is a

@@ -1,4 +1,5 @@
-"""Execution sessions (``repro/exec/session.py``, host and dist regimes).
+"""Execution sessions (``repro/exec/session.py``: host, outlined and dist
+regimes).
 
 A ``Session`` owns the device it runs on and a keyed cache of prepared
 graphs: ``Session.run(spec, g)`` prepares ``g`` once per (graph, spec)
@@ -8,26 +9,37 @@ worklist-size check — picks dense or sparse from it (the paper's H
 policy) and a capacity bucket, and dispatches the step. The steps read
 nothing else back, so that read is the iteration's only synchronisation.
 
+The outlined regime runs one chunk per capacity bucket (``exec/chunk.py``);
+the host re-enters only at bucket boundaries. Its chunk runners (the
+static state buffers and, on a CUDA device, the captured trips) live in
+the prepared graph's cache entry and go with it.
+
 The dist regime runs the same loop over the distributed steps
 (``core/distributed.py``) on a partitioned graph; the partition is cached
-per (graph, shard count, balance), so every algorithm run on one
-partition builds it once.
+per (graph content, shard count, balance), so every algorithm run on one
+partition builds it once, and an equal graph rebuilt per request reuses
+it.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import threading
 import time
+import weakref
 
+import numpy as np
 
 from repro_torch.core import distributed as dist
 from repro_torch.core import ipgc
 from repro_torch.core.engine import (ColoringResult, adaptive_window,
                                      resolve_plan)
-from repro_torch.core.policy import AutoTuned, Policy, Timer, make_policy
-from repro_torch.core.worklist import (bucket_capacities, pick_bucket,
-                                       resize_items)
+from repro_torch.core.policy import (AutoTuned, Policy, Timer,
+                                     device_threshold, make_policy)
+from repro_torch.core.worklist import (bucket_capacities, chunk_lower_bounds,
+                                       pick_bucket, resize_items)
 from repro_torch.device import resolve_device
+from repro_torch.exec.chunk import ChunkRunner
 from repro_torch.exec.spec import NOT_PORTED, ExecutionSpec
 from repro_torch.graphs.csr import Graph
 from repro_torch.graphs.partition import prepare_partition
@@ -44,12 +56,43 @@ class CacheStats:
 
 
 def _graph_key(g) -> tuple:
-    """Graph half of the cache key: identity + static fields. Every entry
-    holds a reference to ``g``, so the id cannot be recycled while the
-    entry lives."""
+    """Graph half of the prep cache key: identity + static fields. Every
+    entry holds a reference to ``g``, so the id cannot be recycled while
+    the entry lives."""
     if isinstance(g, Graph):
         return ("graph", id(g), g.name, g.n_nodes, g.n_edges)
     return ("ig", id(g), g.n_nodes, g.ell_width, g.n_hub, g.layout_kind)
+
+
+#: id(graph) -> its content key, dropped when the graph is collected
+_CONTENT_KEYS: dict[int, tuple] = {}
+
+
+def _content_key(g: Graph) -> tuple:
+    """Graph half of the partition and dist cache keys: by content — name,
+    sizes, layout plan and a digest of the CSR arrays (``row_ptr``,
+    ``col_idx``), memoised per graph object. An equal graph rebuilt per
+    request hits (the reference's ``steps_cache`` contract); a relabeled
+    graph with the same name and sizes does not."""
+    key = _CONTENT_KEYS.get(id(g))
+    if key is None:
+        h = hashlib.blake2b(digest_size=16)
+        for a in (g.arrays.row_ptr, g.arrays.col_idx):
+            a = np.ascontiguousarray(a)
+            h.update(f"{a.dtype.str}{a.shape}".encode())
+            h.update(memoryview(a).cast("B"))
+        key = ("content", g.name, g.n_nodes, g.n_edges, g.layout,
+               h.hexdigest())
+        _CONTENT_KEYS[id(g)] = key
+        weakref.finalize(g, _CONTENT_KEYS.pop, id(g), None)
+    return key
+
+
+#: the step family ``fused=None`` runs in the outlined regime, per device
+#: type: two-phase on the CPU (the reference's choice off the TPU); fused
+#: on CUDA, which ``chip_smoke.py`` measured faster outlined on europe and
+#: level with the two-phase family on kron (PERF.md §6)
+OUTLINED_FUSED = {"cpu": False, "cuda": True}
 
 
 class Session:
@@ -57,12 +100,14 @@ class Session:
 
     ``device`` defaults to the CUDA device (``repro_torch.device``).
     ``max_entries`` bounds the cache FIFO-style; ``None`` keeps every
-    entry.
+    entry. ``cache``: the dict to keep the entries in (a fresh one by
+    default); ``color_distributed``'s ``steps_cache`` arrives here.
     """
 
-    def __init__(self, device=None, max_entries: "int | None" = None):
+    def __init__(self, device=None, max_entries: "int | None" = None,
+                 cache: "dict | None" = None):
         self.device = resolve_device(device)
-        self.cache: dict = {}
+        self.cache: dict = {} if cache is None else cache
         self.max_entries = max_entries
         self.stats = CacheStats()
         self._lock = threading.Lock()
@@ -90,34 +135,38 @@ class Session:
         if spec.regime == "dist":
             return self._run_dist(spec, g, policy=policy,
                                   collect_tti=collect_tti, devices=devices)
-        if spec.regime != "host":
-            raise NotImplementedError(NOT_PORTED[spec.regime])
+        if spec.regime == "outlined":
+            return self._run_outlined(spec, g, policy=policy,
+                                      collect_tti=collect_tti)
         return self._run_host(spec, g, policy=policy,
                               collect_tti=collect_tti)
 
     def partition(self, g: Graph, n_shards: int, *, balance: bool = True):
         """``prepare_partition(g, n_shards)``, cached: ``(g2, new_of_old)``
         with ``g2`` padded to equal, degree-balanced owner blocks."""
-        key = ("partition", _graph_key(g), n_shards, balance)
-        _, g2, new_of_old = self.cached(key, lambda: (
-            g, *prepare_partition(g, n_shards, balance=balance)))
-        return g2, new_of_old
+        key = ("partition", _content_key(g), n_shards, balance)
+        return self.cached(key, lambda: prepare_partition(
+            g, n_shards, balance=balance))
 
     def run_batch(self, spec: ExecutionSpec, graphs):
         raise NotImplementedError(NOT_PORTED["batch"])
 
     def _prepare(self, spec: ExecutionSpec, g, alg):
-        """(prepared IPGCGraph, resolved window), cached per graph."""
+        """(prepared IPGCGraph, resolved window, chunk runners), cached per
+        graph. The runners dict (the outlined regime's, keyed by step
+        family and hub forcing) rides the prep entry, which the host and
+        outlined regimes share; it is None for a graph the caller
+        prepared, which has no entry."""
         if isinstance(g, ipgc.IPGCGraph):
             if g.device != self.device:
                 raise ValueError(f"prepared graph lies on {g.device}, the "
                                  f"session runs on {self.device}")
             if spec.window != "auto":
-                return g, spec.window
+                return g, spec.window, None
             if alg.uses_window:
                 raise ValueError("window='auto' needs a host Graph (it "
                                  "reads the degree histogram)")
-            return g, 128
+            return g, 128, None
         plan = resolve_plan(g, spec.layout)
         key = ("prep", _graph_key(g), alg, spec.priority, plan, spec.window)
 
@@ -128,16 +177,16 @@ class Session:
                 window = adaptive_window(g) if alg.uses_window else 128
             ig = alg.prepare(g, priority=spec.priority, plan=plan,
                              device=self.device)
-            return g, ig, window
+            return g, ig, window, {}
 
-        _, ig, window = self.cached(key, build)
-        return ig, window
+        _, ig, window, runners = self.cached(key, build)
+        return ig, window, runners
 
     def _run_host(self, spec: ExecutionSpec, g, *, policy,
                   collect_tti) -> ColoringResult:
         alg = spec.resolved_algo()
         fused = alg.resolve_fused(spec.fused, default=False)
-        ig, window = self._prepare(spec, g, alg)
+        ig, window, _ = self._prepare(spec, g, alg)
         n = ig.n_nodes
         pol = policy or make_policy(spec.mode, spec.h)
         caps = bucket_capacities(n, ratio=spec.bucket_ratio)
@@ -181,6 +230,77 @@ class Session:
                               counts=counts, tti=tti, total_seconds=total,
                               host_dispatches=it)
 
+    # -- outlined Pipe -----------------------------------------------------------
+
+    def _run_outlined(self, spec: ExecutionSpec, g, *, policy,
+                      collect_tti) -> ColoringResult:
+        """The reference's ``_run_outlined``: one chunk per capacity
+        bucket, the worklist at ``caps[0]`` from the start; per chunk the
+        bucket, the policy's device threshold and the static branch
+        (``"dense"`` when the chunk's count range lies above the
+        threshold, ``"sparse"`` when below, else ``"cond"``). ``counts``
+        and ``tti`` are per chunk, the mode trace comes from the chunks'
+        dense/sparse trip counters, and ``host_dispatches`` is the number
+        of chunks."""
+        alg = spec.resolved_algo()
+        fused = alg.resolve_fused(spec.fused,
+                                  default=OUTLINED_FUSED[self.device.type])
+        ig, window, runners = self._prepare(spec, g, alg)
+        if runners is None:
+            _, runners = self.cached(("runners", _graph_key(ig), window),
+                                     lambda: (ig, {}))
+        n = ig.n_nodes
+        pol = policy or make_policy(spec.mode, spec.h)
+        caps = bucket_capacities(n, ratio=spec.bucket_ratio)
+        lows = chunk_lower_bounds(caps)
+        force_hub = ipgc.force_hub_enabled()
+        rkey = (fused, force_hub, caps[0])
+        runner = runners.get(rkey)
+        if runner is None:
+            runner = runners[rkey] = ChunkRunner(
+                ig, alg, fused=fused, window=window, force_hub=force_hub,
+                capacity=caps[0])
+        runner.reset()
+        count = n
+
+        trace: list[str] = []
+        counts: list[int] = []
+        tti: list[float] = []
+        t_start = time.perf_counter()
+        it = 0
+        bi = 0
+        while count > 0 and it < spec.max_iter:
+            while bi < len(caps) - 1 and caps[bi + 1] >= count:
+                bi += 1
+            thresh = device_threshold(pol, n)
+            # chunk counts stay in (lows[bi], caps[bi]]: one kind of trip
+            # unless the H flip lands inside this chunk
+            if lows[bi] >= thresh:
+                branch = "dense"
+            elif caps[bi] <= thresh:
+                branch = "sparse"
+            else:
+                branch = "cond"
+            counts.append(count)
+            with Timer() as t:
+                c = runner.run(caps[bi], branch=branch, thresh=thresh,
+                               low=lows[bi], max_iter=spec.max_iter,
+                               count=count, it=it)
+            count, it = c.count, c.it
+            trace.append("D" * c.nd + "S" * c.ns)
+            if collect_tti:
+                tti.append(t.seconds)
+            if isinstance(pol, AutoTuned):
+                pol.observe_chunk(c.nd, c.ns, (counts[-1] + count) / 2,
+                                  t.seconds)
+
+        total = time.perf_counter() - t_start
+        final, n_colors = alg.finalize(runner.colors[:n].cpu().numpy())
+        return ColoringResult(colors=final, n_colors=n_colors, iterations=it,
+                              mode_trace="".join(trace), counts=counts,
+                              tti=tti, total_seconds=total,
+                              host_dispatches=len(counts))
+
     # -- sharded distributed Pipe --------------------------------------------
 
     def _run_dist(self, spec: ExecutionSpec, g, *, policy, collect_tti,
@@ -205,7 +325,7 @@ class Session:
         mesh = dist.resolve_mesh(spec.n_shards, devices, self.device)
         n_shards = len(mesh)
         g2, new_of_old = self.partition(g, n_shards, balance=spec.balance)
-        key = ("dist", _graph_key(g), mesh, spec.window, spec.priority,
+        key = ("dist", _content_key(g), mesh, spec.window, spec.priority,
                fused, spec.balance, alg, plan)
 
         def build():
@@ -217,9 +337,9 @@ class Session:
                              device=mesh[0])
             dense_fn, sparse_fn = alg.make_dist_steps(
                 ig, mesh, window=window, fused=fused, exchange=spec.exchange)
-            return g, ig, window, dense_fn, sparse_fn
+            return ig, window, dense_fn, sparse_fn
 
-        _, ig, window, dense_fn, sparse_fn = self.cached(key, build)
+        ig, window, dense_fn, sparse_fn = self.cached(key, build)
         n = ig.n_nodes
         block = n // n_shards
         pol = policy or make_policy(spec.mode, spec.h)
@@ -278,5 +398,6 @@ def default_session(device=None) -> Session:
 
 
 def reset_default_session() -> None:
-    """Drop the process-default sessions (tests; frees pinned graphs)."""
+    """Drop the process-default sessions (tests; frees pinned graphs and
+    the outlined regime's captured trips)."""
     _DEFAULT_SESSIONS.clear()

@@ -1,10 +1,10 @@
 """``ExecutionSpec`` — the frozen description of HOW a coloring runs
 (``repro/exec/spec.py``).
 
-The host regime (the per-iteration host loop) and the distributed regime
-(the sharded Pipe, dense exchange) are ported. The other regimes of the
-reference are named here so that a spec asking for one fails with the
-ROADMAP item that brings it.
+The host regime (the per-iteration host loop), the outlined regime (one
+chunk per capacity bucket) and the distributed regime (the sharded Pipe,
+dense exchange) are ported. Lane batching is named here so that asking
+for it fails with the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -14,8 +14,6 @@ REGIMES = ("host", "outlined", "dist")
 
 #: regimes of the reference the port does not run yet -> ROADMAP item
 NOT_PORTED = {
-    "outlined": "the outlined regime is not ported yet "
-                "(ROADMAP Queue A item 5)",
     "batch": "lane batching is not ported yet (ROADMAP Queue A item 6)",
 }
 
@@ -24,7 +22,7 @@ NOT_PORTED = {
 class ExecutionSpec:
     """Static execution configuration of a coloring run."""
 
-    #: dispatch regime: "host" or "dist" ("outlined" is not ported yet)
+    #: dispatch regime: "host", "outlined" or "dist"
     regime: str = "host"
     #: policy mode ("hybrid" / "topology" / "data" / "hybrid-auto"; a
     #: "dist-" prefix is accepted and stripped by make_policy)
@@ -38,7 +36,8 @@ class ExecutionSpec:
     bucket_ratio: int = 2
     max_iter: int = 10_000
     priority: str = "hash"
-    #: step family; None resolves per regime (host two-phase, dist fused)
+    #: step family; None resolves per regime (host two-phase, outlined per
+    #: device type, dist fused)
     fused: "bool | None" = None
     #: dist regime only: shard count (None = one per visible CUDA device)
     n_shards: "int | None" = None
@@ -66,16 +65,20 @@ def spec_for(*, mode: str = "hybrid", algo: "str | object" = "ipgc",
              h: float = 0.6, window: "int | str" = "auto",
              bucket_ratio: int = 2, max_iter: int = 10_000,
              priority: str = "hash", fused: "bool | None" = None,
-             outline: bool = False,
+             outline: "bool | None" = None,
              layout: "str | object | None" = None,
              n_shards: "int | None" = None, balance: bool = True,
              exchange: str = "dense") -> ExecutionSpec:
     """Map the ``engine.color`` keyword surface onto a spec:
-    ``mode="dist-*"`` selects the distributed regime, ``outline=True``
-    the outlined one, else the host loop."""
+    ``mode="dist-*"`` selects the distributed regime, then ``outline``
+    (None consults ``engine.outline_default()``) the outlined one, else
+    the host loop."""
     if mode.startswith("dist-"):
         regime = "dist"
     else:
+        if outline is None:
+            from repro_torch.core.engine import outline_default
+            outline = outline_default()
         regime = "outlined" if outline else "host"
     return ExecutionSpec(regime=regime, mode=mode, algo=algo, layout=layout,
                          h=h, window=window, bucket_ratio=bucket_ratio,

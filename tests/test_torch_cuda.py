@@ -1,10 +1,13 @@
 """The port's CUDA kernels on the card: each against its plain version,
-and colorings and BFS on the card against the same runs on the CPU. Needs a
+and colorings (host loop, outlined regime, distributed Pipe) and BFS on
+the card against the same runs on the CPU. Needs a
 CUDA device and nvcc; skips without a device. Imports no JAX, so it runs
 where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -284,3 +287,82 @@ def test_card_dist_coloring_equals_cpu(dev, algo, fused):
             (r.iterations, r.mode_trace, r.counts)
     repro_torch.verify_coloring(g, a.colors)
     assert (launched > 0) == (algo != "jpl" and fused is not False)
+
+
+def _outlined_runners(session, g):
+    """The chunk runners ``session`` keeps in ``g``'s prep entries."""
+    return [r for key, entry in session.cache.items()
+            if key[0] == "prep" and entry[0] is g for r in entry[3].values()]
+
+
+#: (algo, fused, kernels its trips must launch) of the outlined colorings
+OUTLINED = [("ipgc", False, ("mex_window", "conflict", "compact")),
+            ("ipgc", True, ("fused_compact",)),
+            ("jpl", None, ("jpl_prio", "compact")),
+            ("spec-greedy", None, ("fused_compact",))]
+
+
+@pytest.mark.parametrize("algo,fused,kernels", OUTLINED)
+def test_card_outlined_equals_host_loop_and_cpu(dev, algo, fused, kernels):
+    """The outlined regime on the card: equal to the card's host loop and
+    to the outlined regime on the CPU; a second run replays the captured
+    trips, captures nothing, and gives the same result; the launches of
+    its trips come from replays, not from the wrappers."""
+    from repro_torch.exec import ExecutionSpec, Session, chunk
+    g = repro_torch.get_dataset("kron_g500-logn21_s", scale=1,
+                                layout="ell-tail", ell_cap=128)
+    s = Session(dev)
+    spec = ExecutionSpec(regime="outlined", algo=algo, fused=fused)
+    with chunk.CHUNK_COUNTS.scope() as counts:
+        a = s.run(spec, g)
+        graphs = counts["graphs"]
+        assert graphs > 0 and counts["reads"] == a.iterations
+        wrapped = _build.KERNEL_LAUNCHES.as_dict()
+        with chunk.REPLAYED_LAUNCHES.scope() as replayed:
+            b = s.run(spec, g)
+            assert all(replayed[k] > 0 for k in kernels)
+        assert counts["graphs"] == graphs
+        assert _build.KERNEL_LAUNCHES.as_dict() == wrapped
+    h = s.run(dataclasses.replace(spec, regime="host"), g)
+    c = repro_torch.color(g, algo=algo, fused=fused, outline=True,
+                          device="cpu")
+    for r in (b, c):
+        np.testing.assert_array_equal(a.colors, r.colors)
+        assert (a.n_colors, a.iterations, a.mode_trace, a.counts,
+                a.host_dispatches) == (r.n_colors, r.iterations,
+                                       r.mode_trace, r.counts,
+                                       r.host_dispatches)
+    np.testing.assert_array_equal(a.colors, h.colors)
+    assert (a.n_colors, a.iterations, a.mode_trace) == \
+        (h.n_colors, h.iterations, h.mode_trace)
+    repro_torch.verify_coloring(g, a.colors)
+
+
+def test_card_outlined_replay_is_sync_free(dev):
+    """Every captured trip replays with CUDA's sync debug mode at
+    "error"."""
+    from repro_torch.exec import ExecutionSpec, Session
+    g = repro_torch.get_dataset("europe_osm_s", scale=0.5, layout="auto")
+    s = Session(dev)
+    for algo, fused in (("ipgc", False), ("ipgc", True), ("jpl", None)):
+        s.run(ExecutionSpec(regime="outlined", algo=algo, fused=fused), g)
+    trips = [t for r in _outlined_runners(s, g) for t in r.trips.values()]
+    assert len(trips) >= 3
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for trip in trips:
+            trip.graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_card_color_outlined_equals_cpu(dev):
+    g = repro_torch.get_dataset("kron_g500-logn21_s", scale=0.5,
+                                layout="ell-tail", ell_cap=128)
+    a = repro_torch.color_outlined(g)
+    b = repro_torch.color_outlined(g, device="cpu")
+    np.testing.assert_array_equal(a.colors, b.colors)
+    assert (a.iterations, a.mode_trace, a.host_dispatches) == \
+        (b.iterations, b.mode_trace, b.host_dispatches)

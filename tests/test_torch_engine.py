@@ -1,6 +1,6 @@
 """The port's host-loop Pipe against ``repro.core.color``: every layout kind
 x mode x step family on a power-law graph with hubs and on a road graph;
-the device rule; the regimes not ported yet; and the host helpers the
+the device rule; what is not ported yet; and the host helpers the
 engine shares with the reference."""
 import numpy as np
 import pytest
@@ -66,10 +66,10 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(outline=True), "outlined"),
     # the distributed Pipe runs the dense exchange; the packed boundary
-    # exchange is what it does not run yet
-    (dict(mode="dist-hybrid", exchange="boundary"), "distributed"),
+    # exchange is what it does not run yet (the case keeps its test id)
+    pytest.param(dict(mode="dist-hybrid", exchange="boundary"),
+                 "distributed", id="kw1-distributed"),
 ])
 def test_unported_regimes_raise(kw, what):
     g = get_dataset("europe_osm_s", scale=0.01, layout="pure-ell")
