@@ -73,6 +73,39 @@ each failing the script on any error:
    operations per iteration. The fused family wins ``fused=None`` on CUDA
    where it is faster warm on both graphs (``outlined.fused_rule``).
 
+7. batch and stream (after phase 6 and the card-vs-CPU checks, reusing
+   phase 3's graphs and results): the heavy-tail request mix
+   (``get_dataset_batch(heavy_tail=...)``: 16 requests of the road, hub,
+   web and geometric families, 65K to 1M nodes, seed 7, ell-tail at ELL
+   width 128), each
+   graph's build timed; each colored alone (``Session.run``, the four
+   colorings, verified; their sum is the sequential baseline); then
+   ``Session.run_batch`` of the mix per coloring, cold (one captured trip
+   per lane group) and warm (replays only, nothing captured), every lane
+   equal to its solo run, per lane group its shape class, lanes, trips,
+   captures and replayed launches, per call the seconds, graphs/s and peak
+   memory; every captured lane trip replayed once more under sync debug
+   "error"; the stream service (ipgc two-phase, lanes=8, adaptive) fed the
+   mix plus phase 3's kron and europe from a producer thread under
+   ``serving()``, each result equal to its solo run (phase 3's for kron and
+   europe), and a jpl stream of the mix (lanes=4) driven by ``pump()`` and
+   ``drain()`` with lanes refilled mid-stream; rounds, dispatches, grows,
+   shrinks, restacks, captures, lane occupancy, p50/p90 of the tickets'
+   total seconds, graphs/s and peak memory; the kernels of a lane trip
+   held against their plain versions, exactly, on the operands the trip
+   hands them (recorded two trips into a run) at the real sizes of each
+   coloring's largest run_batch lane group and of the ipgc stream's kron
+   group (``batch.lane_kernels``; the kernels line's
+   ``lane_rows_checked``); the mix in the reference's serving layout
+   (ell-tail at the auto ELL width), per coloring a ``run_batch`` of the
+   16 requests that either runs or refuses with ``LaneMemoryError`` before
+   it allocates, then runs on the largest leading part of the mix that
+   fits, cold and warm, every lane equal to its solo run; finally
+   ``run_batch`` and a ``ManualClock`` jpl stream at kron scale 1 and
+   europe scale 0.02 on the card and on the CPU, identical. The kernels
+   line's ``batch_launches`` are the replayed launches of this phase's
+   run_batch calls and streams.
+
 BFS does not run on europe at full size: its road-like chain needs on the
 order of millions of levels from any source.
 
@@ -83,10 +116,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -104,12 +139,17 @@ from repro_torch.core import bfs as bfs_mod  # noqa: E402
 from repro_torch.core import distributed as dist  # noqa: E402
 from repro_torch.core import ipgc, jpl_color, vb_color  # noqa: E402
 from repro_torch.core.engine import adaptive_window  # noqa: E402
-from repro_torch.core.policy import make_policy  # noqa: E402
+from repro_torch.core.policy import (device_threshold,  # noqa: E402
+                                     make_policy)
 from repro_torch.core.worklist import (Worklist,  # noqa: E402
                                        bucket_capacities, pick_bucket,
                                        resize_items)
+from repro_torch.exec import ExecutionSpec, Session  # noqa: E402
+from repro_torch.exec import batch as batch_mod  # noqa: E402
 from repro_torch.exec import chunk as chunk_mod  # noqa: E402
 from repro_torch.exec import default_session  # noqa: E402
+from repro_torch.graphs import (get_dataset_batch,  # noqa: E402
+                                heavy_tail_requests)
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.compact import TILE as COMPACT_TILE  # noqa: E402
 from repro_torch.kernels.compact import compact_plain  # noqa: E402
@@ -122,6 +162,7 @@ from repro_torch.kernels.fused_step import \
     fused_step_rows_plain  # noqa: E402
 from repro_torch.kernels.jpl_prio import jpl_extrema_plain  # noqa: E402
 from repro_torch.kernels.mex_window import mex_window_plain  # noqa: E402
+from repro_torch.serve import ManualClock, StreamConfig  # noqa: E402
 
 from _gather_cases import gather_case, gathered  # noqa: E402
 
@@ -400,10 +441,11 @@ class Recorder:
     """Wraps ``ops.<name>`` while active: counts its calls by row count
     (``rows_of(args)``; None skips the call) and keeps the arguments of the
     first call at each row count (the operands the main path hands the
-    kernel, as they were)."""
+    kernel, as they were; with ``copy``, copies of its tensors, for a
+    caller that writes into them after the call)."""
 
-    def __init__(self, name: str, rows_of=items_rows):
-        self.name, self.rows_of = name, rows_of
+    def __init__(self, name: str, rows_of=items_rows, copy: bool = False):
+        self.name, self.rows_of, self.copy = name, rows_of, copy
         self.calls: dict[int, int] = {}
         self.args: dict[int, tuple] = {}
 
@@ -414,7 +456,12 @@ class Recorder:
             r = self.rows_of(args)
             if r is not None:
                 self.calls[r] = self.calls.get(r, 0) + 1
-                self.args.setdefault(r, (args, kw))
+                if r not in self.args:
+                    kept = args
+                    if self.copy:
+                        kept = tuple(a.clone() if torch.is_tensor(a) else a
+                                     for a in args)
+                    self.args[r] = (kept, kw)
             return real(*args, **kw)
 
         setattr(ops, self.name, spy)
@@ -1360,6 +1407,527 @@ def card_vs_cpu_phase() -> None:
                 n_colors=a.n_colors, identical_cpu_and_host_engine=True)
 
 
+# --- phase 7 -------------------------------------------------------------------
+
+#: the serving traffic mix of ``benchmarks/bench_engine_modes.py``
+#: (``STREAM_MIX``; names repeat to weight the draw): road and hub graphs
+#: are the bulk of the traffic, web uncommon and rgg rare
+STREAM_MIX = ("europe_osm_s", "circuit5M_s", "europe_osm_s", "circuit5M_s",
+              "europe_osm_s", "circuit5M_s", "indochina-2004_s",
+              "rgg_n_2_24_s0_s")
+#: the heavy-tail request mix of phase 7: 16 requests, most near 65K
+#: nodes, a few near 1M (``get_dataset_batch(heavy_tail=)``)
+MIX = dict(count=16, names=STREAM_MIX, min_nodes=65_536,
+           max_nodes=1_048_576, alpha=1.5)
+MIX_SEED = 7
+#: the mix's layout: ell-tail at the historical ELL width of 128, as
+#: phase 3's kron. Uncapped (``UNCAPPED_LAYOUT``, the reference's serving
+#: layout), the auto width of the hub graphs (circuit5M_s: 1,560 to 3,480)
+#: pads every lane of their rung to it, and the two-phase and jpl
+#: run_batch of the 16 requests need more than the card's 80 GB
+#: (``uncapped_phase``)
+MIX_LAYOUT = dict(layout="ell-tail", ell_cap=128)
+UNCAPPED_LAYOUT = dict(layout="ell-tail")
+#: the card-vs-CPU batch of phase 7
+SMALL_ROAD = dict(name="europe_osm_s", scale=0.02, layout="auto")
+
+
+def mix_phase() -> list:
+    """The heavy-tail request mix, one graph at a time (so each build is
+    timed), then checked to be what ``get_dataset_batch(heavy_tail=)``
+    returns for the same seed."""
+    graphs = []
+    for name, over in heavy_tail_requests(seed=MIX_SEED, **MIX):
+        t0 = time.perf_counter()
+        (g,) = get_dataset_batch([(name, over)], seed=MIX_SEED,
+                                 **MIX_LAYOUT)
+        log(phase="batch.request", graph=g.name, scale=over["scale"],
+            nodes=g.n_nodes, edges=g.n_edges, layout=g.layout.kind,
+            ell_width=g.ell_width, build_seconds=time.perf_counter() - t0)
+        graphs.append(g)
+    again = get_dataset_batch(heavy_tail=dict(MIX), seed=MIX_SEED,
+                              **MIX_LAYOUT)
+    if [id(g) for g in again] != [id(g) for g in graphs]:
+        raise AssertionError("get_dataset_batch(heavy_tail=) built another "
+                             "mix")
+    return graphs
+
+
+def same_coloring(a, b) -> bool:
+    """Colors, colors used, iterations and mode trace."""
+    return (np.array_equal(a.colors, b.colors)
+            and (a.n_colors, a.iterations, a.mode_trace)
+            == (b.n_colors, b.iterations, b.mode_trace))
+
+
+def solo_phase(sess, graphs, layout: str = "ell_cap=128") -> dict:
+    """Each graph of the mix alone (``Session.run``, phase 3's specs), for
+    each coloring, verified; the sum of their seconds is the sequential
+    baseline."""
+    solo = {}
+    for algo, fused, _ in COLORINGS:
+        spec = ExecutionSpec(regime="host", algo=algo, fused=fused)
+        res = []
+        for g in graphs:
+            r = sess.run(spec, g)
+            repro_torch.verify_coloring(g, r.colors,
+                                        context=f"{g.name} {algo} solo")
+            get_algorithm(algo).check_invariants(r, g)
+            res.append(r)
+        solo[(algo, fused)] = res
+        log(phase="batch.solo", algo=algo, fused=fused, layout=layout,
+            graphs=len(graphs),
+            seconds=sum(r.total_seconds for r in res),
+            iterations=[r.iterations for r in res],
+            n_colors=[r.n_colors for r in res])
+    return solo
+
+
+def lane_groups(sess) -> list:
+    """``(graphs, LaneState)`` of the run_batch lane groups in ``sess``."""
+    return [entry for key, entry in sess.cache.items() if key[0] == "stack"]
+
+
+def lane_step(algo: str, fused):
+    """The dense step a lane group of this coloring runs."""
+    alg = get_algorithm(algo)
+    return alg.lane_step(alg.resolve_fused(fused, default=False))
+
+
+def group_summary(graphs, st, step) -> dict:
+    """A run_batch lane group after its run: its shape class, lanes,
+    trips (= counter reads), captures, the launches its replays made, the
+    bytes it owns and the bytes ``batch.group_bytes`` reckoned for it."""
+    trips = int(st.host[batch_mod.IT].max())
+    replayed: dict = {}
+    for trip in st.trips.values():
+        for k, v in trip.launches.items():
+            replayed[k] = replayed.get(k, 0) + v * trips
+    return dict(n_pad=st.sc.n_pad, k_pad=st.sc.k_pad, t_pad=st.sc.t_pad,
+                nh_pad=st.sc.nh_pad, window=st.sc.window, b=st.b,
+                real_lanes=len(graphs), trips=trips, graphs_captured=len(
+                    st.trips), owned_gb=st.nbytes / 2**30,
+                reckoned_gb={k: v / 2**30 for k, v in batch_mod.group_bytes(
+                    st.sc, st.b, st.alg, step).items()},
+                replayed_launches=replayed)
+
+
+#: the kernels of the lane trips, by wrapper, and their plain versions
+LANE_PLAIN = {"mex_window": mex_window_plain,
+              "conflict": conflict_rows_plain,
+              "compact": compact_plain,
+              "fused_compact": fused_compact_rows_plain,
+              "jpl_extrema": jpl_extrema_plain}
+#: every lane-trip call held against its plain version: (kernel, rows)
+LANE_CHECKS: list = []
+
+
+def lane_call_row(name: str, args, kw, what: str, rows: int,
+                  reps: int = 5) -> dict:
+    """One recorded call of a lane trip's kernel (on a group of ``rows``
+    rows), made again through the kernel and through its plain version:
+    exactly equal; both timed."""
+    def kernel():
+        return getattr(ops, name)(*args, **kw)
+
+    def plain():
+        return LANE_PLAIN[name](*args, **kw)
+
+    err = assert_equal(kernel(), plain(), f"{name} on {what}")
+    LANE_CHECKS.append((name, rows))
+    return dict(kernel=name, shapes=[list(a.shape) for a in args
+                                     if torch.is_tensor(a)],
+                max_abs_err=err, equal=True, ms=cuda_ms(kernel, reps),
+                plain_ms=cuda_ms(plain, 2))
+
+
+def load_lanes(st, spec: ExecutionSpec) -> None:
+    """Load a fresh run into every lane of ``st``, as run_batch does."""
+    pol = make_policy(spec.mode, spec.h)
+    for lane, ig in enumerate(st.lanes):
+        rn = 0 if ig is None else ig.n_nodes
+        st.reset_lane(lane, rn, device_threshold(pol, rn) if rn else 0,
+                      spec.max_iter)
+
+
+def lane_trip_kernels(st, step, what: str, need, trips: int = 2) -> dict:
+    """The kernels of a trip of lane group ``st`` under ``step``, held
+    against their plain versions on the operands that trip hands them, at
+    the group's real size. The trip is the group's own
+    (``LaneState._trip``, the code its captured graph holds), run eagerly
+    on a copy of its state ``trips`` trips into the run its lanes were
+    last loaded with, every kernel's wrapper recorded; each recorded call
+    is made again through the kernel and its plain version, which must
+    agree exactly. ``need``: the kernels (launch counters) the trip must
+    call. Returns the log line's fields."""
+    buf = st.buf.clone()
+    force_hub = ipgc.force_hub_enabled()
+    for _ in range(trips):
+        st._trip(buf, step, st.sc.window, force_hub)
+    recs = [Recorder(name, lambda a: 0, copy=True) for name in LANE_PLAIN]
+    with contextlib.ExitStack() as stack:
+        for rec in recs:
+            stack.enter_context(rec)
+        st._trip(buf, step, st.sc.window, force_hub)
+    del buf
+    calls = [lane_call_row(rec.name, *rec.args[0], what,
+                           st.b * st.sc.n_pad) for rec in recs if rec.args]
+    seen = {SOURCES[c["kernel"]][2] for c in calls}
+    if not set(need) <= seen:
+        raise AssertionError(f"{what}: the trip called {sorted(seen)}, "
+                             f"not all of {list(need)}")
+    return dict(n_pad=st.sc.n_pad, b=st.b, rows=st.b * st.sc.n_pad,
+                k_pad=st.sc.k_pad, nh_pad=st.sc.nh_pad, window=st.sc.window,
+                real_lanes=sum(ig is not None for ig in st.lanes),
+                trips_before=trips, calls=calls, equal=True)
+
+
+def replay_lane_trips(sess) -> int:
+    """Replay every captured lane-group trip once more with CUDA's sync
+    debug mode at "error" (its lanes drained: the trip changes nothing)."""
+    replays = 0
+    torch.cuda.synchronize()
+    for _, st in lane_groups(sess):
+        for trip in st.trips.values():
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                trip.graph.replay()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            replays += 1
+    torch.cuda.synchronize()
+    return replays
+
+
+def run_batch_phase(sess, graphs, solo) -> dict:
+    """``Session.run_batch`` of the mix, per coloring, cold (captures) and
+    warm (replays only): every lane equal to its solo run. Returns the
+    replayed launches per kernel."""
+    launches = dict.fromkeys(_build.SOURCES, 0)
+    for algo, fused, need in COLORINGS:
+        spec = ExecutionSpec(regime="host", algo=algo, fused=fused)
+        want = solo[(algo, fused)]
+        what = f"run_batch {algo} fused={fused}"
+        for run in ("cold", "warm"):
+            start_counts()
+            with chunk_mod.REPLAYED_LAUNCHES.scope() as rl, \
+                    chunk_mod.CHUNK_COUNTS.scope() as cc:
+                t0 = time.perf_counter()
+                res = sess.run_batch(spec, graphs)
+                wall = time.perf_counter() - t0
+                replayed, counts = rl.as_dict(), cc.as_dict()
+            for g, r, w in zip(graphs, res, want):
+                if not same_coloring(r, w):
+                    raise AssertionError(f"{what} ({run}): the lane of "
+                                         f"{g.name} differs from its solo "
+                                         "run")
+            missing = [k for k in need if replayed[k] == 0]
+            if missing:
+                raise AssertionError(f"{what} ({run}): kernels {missing} "
+                                     "never replayed")
+            if run == "warm" and counts["graphs"]:
+                raise AssertionError(f"{what}: the warm call captured "
+                                     f"{counts['graphs']} graphs")
+            for k, v in replayed.items():
+                launches[k] += v
+            log(phase="batch.run_batch", algo=algo, fused=fused, run=run,
+                graphs=len(graphs), seconds=wall,
+                graphs_per_second=len(graphs) / wall,
+                solo_seconds=sum(r.total_seconds for r in want),
+                chunks=counts["chunks"], counter_reads=counts["reads"],
+                graphs_captured=counts["graphs"],
+                capture_seconds=counts["capture_us"] / 1e6,
+                replayed_launches={k: v for k, v in replayed.items() if v},
+                wrapper_launches={k: v for k, v in
+                                  _build.KERNEL_LAUNCHES.items() if v},
+                groups=[group_summary(*e, lane_step(algo, fused))
+                        for e in lane_groups(sess)],
+                identical_to_solo=True,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+        log(phase="batch.sync_checked_replay", algo=algo, fused=fused,
+            graphs_replayed=replay_lane_trips(sess), clean=True)
+        # the kernels at the largest group's operands, mid-run
+        _, st = max(lane_groups(sess), key=lambda e: e[1].b * e[1].sc.n_pad)
+        load_lanes(st, spec)
+        log(phase="batch.lane_kernels", algo=algo, fused=fused,
+            group="run_batch", **lane_trip_kernels(
+                st, lane_step(algo, fused), what, need))
+        del st
+        # free this coloring's lane groups before the next one's
+        for key in [k for k in sess.cache if k[0] == "stack"]:
+            del sess.cache[key]
+        torch.cuda.empty_cache()
+    return launches
+
+
+def stream_summary(stream, wall: float, n: int) -> dict:
+    st = stream.stats()
+    total = stream.metrics.get("stream.total_seconds")
+    return dict(rounds=st["rounds"], dispatches=st["dispatches"],
+                restacks=st["restacks"],
+                grows=sum(g["grows"] for g in st["lane_groups"].values()),
+                shrinks=sum(g["shrinks"] for g in st["lane_groups"].values()),
+                lane_occupancy=st["lane_occupancy"],
+                lane_groups=st["lane_groups"],
+                total_seconds_p50=total.percentile(50),
+                total_seconds_p90=total.percentile(90), seconds=wall,
+                graphs_per_second=n / wall)
+
+
+def stream_phase(sess, graphs, solo, big: list) -> dict:
+    """The stream service on the card: the mix plus phase 3's kron and
+    europe (``big``: ``(graph, phase-3 result)``), submitted from a
+    producer thread under ``serving()`` (ipgc two-phase, lanes=8,
+    adaptive), then a jpl stream of the mix with lanes=4 driven by
+    ``pump()``/``drain()`` on this thread, lanes refilled mid-stream.
+    Every result equal to its solo run. Returns the replayed launches."""
+    launches = dict.fromkeys(_build.SOURCES, 0)
+    reqs = graphs + [g for g, _ in big]
+    want = solo[("ipgc", False)] + [r for _, r in big]
+    stream = sess.stream(ExecutionSpec(regime="host"), StreamConfig(
+        lanes=8, chunk="auto", adaptive_lanes=True, max_queue=64,
+        max_nodes=50_800_000))
+    tickets: list = []
+    start_counts()
+    with chunk_mod.REPLAYED_LAUNCHES.scope() as rl, \
+            chunk_mod.CHUNK_COUNTS.scope() as cc:
+        t0 = time.perf_counter()
+        with stream.serving():
+            producer = threading.Thread(
+                target=lambda: tickets.extend(stream.submit(g)
+                                              for g in reqs))
+            producer.start()
+            producer.join()
+        wall = time.perf_counter() - t0
+        replayed, counts = rl.as_dict(), cc.as_dict()
+    for tk, w in zip(tickets, want):
+        if tk.status != "done" or not same_coloring(tk.result, w):
+            raise AssertionError(f"stream ipgc: {tk.graph.name} "
+                                 f"({tk.status}) differs from its solo run")
+    for k, v in replayed.items():
+        launches[k] += v
+    # kron and europe ride the rungs of their sizes on the node ladder
+    caps = bucket_capacities(stream.config.max_nodes, ratio=2)
+    big_rungs = [pick_bucket(caps, g.n_nodes) for g, _ in big]
+    groups = stream.stats()["lane_groups"]
+    for rung in big_rungs:
+        if not any(k.startswith(f"{rung}/") for k in groups):
+            raise AssertionError(f"stream ipgc: no lane group at rung {rung}")
+    log(phase="batch.stream", algo="ipgc", fused=False, lanes=8,
+        requests=len(reqs), captures=counts["graphs"],
+        capture_seconds=counts["capture_us"] / 1e6,
+        counter_reads=counts["reads"], identical_to_solo=True,
+        big_rungs=big_rungs,
+        big_service_seconds=[tk.service_seconds
+                             for tk in tickets[len(graphs):]],
+        big_host_loop_seconds=[r.total_seconds for _, r in big],
+        big_chunks=[tk.chunks for tk in tickets[len(graphs):]],
+        replayed_launches={k: v for k, v in replayed.items() if v},
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+        **stream_summary(stream, wall, len(reqs)))
+    # the kernels at the operands of the stream's kron lane group, with
+    # kron loaded into its lane 0 again (the stream has drained)
+    spec = stream.spec
+    kron, _ = big[0]
+    ig, window = sess._prepare(spec, kron, stream._alg)[:2]
+    st = stream._groups[(big_rungs[0], window, ig.layout_kind)].state
+    st.admit(0, ig, device_threshold(stream._pol, ig.n_nodes),
+             spec.max_iter)
+    log(phase="batch.lane_kernels", algo="ipgc", fused=False,
+        group=f"stream {kron.name}", **lane_trip_kernels(
+            st, stream._step, f"the stream's {kron.name} lane group",
+            COLORINGS[0][2]))
+    del stream, tickets, st
+    torch.cuda.empty_cache()
+
+    want = solo[("jpl", None)]
+    stream = sess.stream(ExecutionSpec(regime="host", algo="jpl"),
+                         StreamConfig(lanes=4))
+    start_counts()
+    with chunk_mod.REPLAYED_LAUNCHES.scope() as rl, \
+            chunk_mod.CHUNK_COUNTS.scope() as cc:
+        t0 = time.perf_counter()
+        tickets = [stream.submit(g) for g in graphs[:8]]
+        for _ in range(3):
+            stream.pump()
+        tickets += [stream.submit(g) for g in graphs[8:]]
+        stream.drain()
+        wall = time.perf_counter() - t0
+        replayed, counts = rl.as_dict(), cc.as_dict()
+    for tk, w in zip(tickets, want):
+        if tk.status != "done" or not same_coloring(tk.result, w):
+            raise AssertionError(f"stream jpl: {tk.graph.name} "
+                                 f"({tk.status}) differs from its solo run")
+    if not any(tk.admit_round > 1 for tk in tickets):
+        raise AssertionError("stream jpl: no lane was refilled mid-stream")
+    for k, v in replayed.items():
+        launches[k] += v
+    log(phase="batch.stream", algo="jpl", fused=None, lanes=4,
+        requests=len(graphs), captures=counts["graphs"],
+        capture_seconds=counts["capture_us"] / 1e6,
+        counter_reads=counts["reads"], identical_to_solo=True,
+        admit_rounds=[tk.admit_round for tk in tickets],
+        replayed_launches={k: v for k, v in replayed.items() if v},
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+        **stream_summary(stream, wall, len(graphs)))
+    return launches
+
+
+def uncapped_phase() -> dict:
+    """The mix in the reference's serving layout (``UNCAPPED_LAYOUT``:
+    ell-tail at the auto ELL width, up to 3,480 for the hub graphs). Per
+    coloring, ``run_batch`` of the 16 requests; where its reckoning
+    (``batch.group_bytes``) is more than the card has free, the call must
+    refuse with ``LaneMemoryError`` and leave nothing allocated, and the
+    mix is cut to its first ``m`` requests, sizes unchanged, for the
+    largest ``m`` that fits. The call that runs goes cold and warm
+    (nothing captured), every lane equal to its solo run at the same
+    width; the memory its groups and capture pools hold is logged beside
+    the reckoning. Returns the replayed launches per kernel."""
+    t0 = time.perf_counter()
+    graphs = get_dataset_batch(heavy_tail=dict(MIX), seed=MIX_SEED,
+                               **UNCAPPED_LAYOUT)
+    log(phase="batch.uncapped.mix", graphs=[g.name for g in graphs],
+        nodes=[g.n_nodes for g in graphs],
+        ell_widths=[g.ell_width for g in graphs],
+        build_seconds=time.perf_counter() - t0)
+    sess = Session()
+    solo = solo_phase(sess, graphs, layout="uncapped")
+    launches = dict.fromkeys(_build.SOURCES, 0)
+    for algo, fused, need in COLORINGS:
+        spec = ExecutionSpec(regime="host", algo=algo, fused=fused)
+        what = f"uncapped run_batch {algo} fused={fused}"
+        refused = []
+        m = len(graphs)
+        while True:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated()
+            reserved = torch.cuda.memory_reserved()
+            free = torch.cuda.mem_get_info()[0]
+            start_counts()
+            error = None
+            try:
+                with chunk_mod.REPLAYED_LAUNCHES.scope() as rl:
+                    t1 = time.perf_counter()
+                    res = sess.run_batch(spec, graphs[:m])
+                    cold = time.perf_counter() - t1
+                    replayed = rl.as_dict()
+            except batch_mod.LaneMemoryError as e:
+                error = str(e)
+            if error is None:
+                break
+            # a refused call leaves nothing behind
+            torch.cuda.synchronize()
+            if lane_groups(sess) or torch.cuda.memory_allocated() != before:
+                raise AssertionError(f"{what}: the refused call of {m} "
+                                     f"requests left memory behind: {error}")
+            refused.append(dict(requests=m, free_gb=free / 2**30,
+                                error=error))
+            m -= 1
+            if m == 0:
+                raise AssertionError(f"{what}: no request fits")
+        peak_cold = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.empty_cache()
+        # what the call's lane groups and their capture pools hold
+        held = torch.cuda.memory_reserved() - reserved
+        with chunk_mod.CHUNK_COUNTS.scope() as cc:
+            t1 = time.perf_counter()
+            warm_res = sess.run_batch(spec, graphs[:m])
+            warm = time.perf_counter() - t1
+            captured = cc["graphs"]
+        if captured:
+            raise AssertionError(f"{what}: the warm call captured "
+                                 f"{captured} graphs")
+        for g, r, rw, w in zip(graphs, res, warm_res,
+                               solo[(algo, fused)]):
+            if not (same_coloring(r, w) and same_coloring(rw, w)):
+                raise AssertionError(f"{what}: the lane of {g.name} "
+                                     "differs from its solo run")
+        missing = [k for k in need if replayed[k] == 0]
+        if missing:
+            raise AssertionError(f"{what}: kernels {missing} never "
+                                 "replayed")
+        for k, v in replayed.items():
+            launches[k] += v
+        step = lane_step(algo, fused)
+        groups = [group_summary(*e, step) for e in lane_groups(sess)]
+        log(phase="batch.uncapped.run_batch", algo=algo, fused=fused,
+            requests=m, refused=refused, free_gb=free / 2**30,
+            held_gb=held / 2**30,
+            reckoned_gb=sum(sum(g["reckoned_gb"].values()) for g in groups),
+            cold_seconds=cold,
+            warm_seconds=warm, graphs_per_second_warm=m / warm,
+            solo_seconds=sum(r.total_seconds
+                             for r in solo[(algo, fused)][:m]),
+            groups=groups,
+            replayed_launches={k: v for k, v in replayed.items() if v},
+            identical_to_solo=True, peak_mem_gb_cold=peak_cold,
+            peak_mem_gb_warm=torch.cuda.max_memory_allocated() / 2**30)
+        for key in [k for k in sess.cache if k[0] == "stack"]:
+            del sess.cache[key]
+        torch.cuda.empty_cache()
+    del sess
+    torch.cuda.empty_cache()
+    return launches
+
+
+def batch_card_vs_cpu_phase() -> None:
+    """run_batch (ipgc two-phase) and a ManualClock jpl stream (lanes
+    refilled mid-stream) at kron scale 1 and europe scale 0.02, on the card
+    and on the CPU: identical results, tickets and ``stats()``."""
+    graphs = [build_graph(SMALL)[0], build_graph(SMALL_ROAD)[0]]
+    spec = ExecutionSpec(regime="host")
+    a = Session().run_batch(spec, graphs)
+    b = Session("cpu").run_batch(spec, graphs)
+    for g, ra, rb in zip(graphs, a, b):
+        if not (same_coloring(ra, rb) and ra.counts == rb.counts):
+            raise AssertionError(f"run_batch: card and CPU differ on "
+                                 f"{g.name}")
+    runs = []
+    for device in ("cuda", "cpu"):
+        stream = Session(device).stream(
+            ExecutionSpec(regime="host", algo="jpl"),
+            StreamConfig(lanes=2, chunk=3, clock=ManualClock(tick=0.25)))
+        tickets = [stream.submit(g) for g in graphs + graphs[1:] * 3]
+        stream.drain()
+        stats = stream.stats()
+        stats.pop("dispatch_seconds")
+        runs.append(([(tk.status, tk.admit_round, tk.drain_round, tk.chunks,
+                       tk.enqueue_s, tk.admit_s, tk.drain_s) for tk in
+                      tickets], [tk.result for tk in tickets], stats))
+    (ta, ra, sa), (tb, rb, sb) = runs
+    if not (ta == tb and sa == sb
+            and all(same_coloring(x, y) for x, y in zip(ra, rb))):
+        raise AssertionError("stream jpl: card and CPU differ")
+    log(phase="batch.card_vs_cpu", graphs=[g.name for g in graphs],
+        run_batch_iterations=[r.iterations for r in a],
+        stream_admit_rounds=[t[1] for t in ta], stream_rounds=sa["rounds"],
+        identical=True)
+
+
+def batch_phase(big: list) -> dict:
+    """Phase 7; ``big``: phase 3's kron and europe with their ipgc
+    two-phase results. Returns the replayed launches per kernel of its
+    run_batch calls and streams."""
+    t0 = time.perf_counter()
+    graphs = mix_phase()
+    sess = Session()
+    solo = solo_phase(sess, graphs)
+    launches = run_batch_phase(sess, graphs, solo)
+    for k, v in stream_phase(sess, graphs, solo, big).items():
+        launches[k] += v
+    del sess
+    gc.collect()                  # a stream and its lane groups: a cycle
+    torch.cuda.empty_cache()
+    for k, v in uncapped_phase().items():
+        launches[k] += v
+    batch_card_vs_cpu_phase()
+    log(phase="batch.done", seconds=time.perf_counter() - t0,
+        replayed_launches=launches)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1381,25 +1949,22 @@ def main() -> int:
     baselines_phase(kron)
     outlined = {kron.name: outlined_phase(kron, kron_host)}
     profile_phase(kron)
-    del kron_host
     default_session().cache.clear()
     torch.cuda.empty_cache()
     dist_runs, ctx = dist_phase(kron, [dev] * KRON_SHARDS, DIST_RUNS,
                                 record=True)
     runs += dist_runs
     rows["fused_step"] = fused_step_row(**ctx)
-    del kron, ctx
+    del ctx
     default_session().cache.clear()
     torch.cuda.empty_cache()
     road, road_s = build_graph(ROAD)
     road_host: dict = {}
     runs += path_phase(road, road_s, results=road_host)
     outlined[road.name] = outlined_phase(road, road_host)
-    del road_host
     default_session().cache.clear()
     torch.cuda.empty_cache()
     runs += dist_phase(road, None, DIST_RUNS[:1])[0]
-    del road
     default_session().cache.clear()
     torch.cuda.empty_cache()
     totals = {k: sum(c[k] for c in runs) for k in _build.SOURCES}
@@ -1408,8 +1973,15 @@ def main() -> int:
 
     fused_rule(outlined)
     card_vs_cpu_phase()
+    big = [(kron, kron_host[("ipgc", False)]),
+           (road, road_host[("ipgc", False)])]
+    del kron_host, road_host
+    batch = batch_phase(big)
+    del big, kron, road
     for name, row in rows.items():
         row["launches"] = totals[SOURCES[name][2]]
+        row["batch_launches"] = batch[SOURCES[name][2]]
+        row["lane_rows_checked"] = [r for k, r in LANE_CHECKS if k == name]
         row["outlined_launches"] = sum(
             o["launches"][SOURCES[name][2]] for by in outlined.values()
             for o in by.values())

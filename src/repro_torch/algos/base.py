@@ -45,6 +45,15 @@ class Algorithm:
     shard_safe: bool = False
     #: raised by the distributed Pipe when it is asked for anyway
     shard_unsafe_reason: str = ""
+    #: may this algorithm run lane-batched (``Session.run_batch``, the
+    #: stream service)? ``True`` promises that ``lane_step`` on a
+    #: flattened lane group equals the dense step on each lane, and that
+    #: the dense step on any active set gives the sparse step's state (the
+    #: dual-worklist invariant), so a dense-only lane equals the host loop
+    #: (DESIGN.md §9)
+    batch_safe: bool = False
+    #: raised by the batched Pipe when it is asked for anyway
+    batch_unsafe_reason: str = ""
     #: tie-break priority fed to ``prepare`` when the caller passes None
     default_priority: str = "hash"
     #: whether the steps read a mex color window; ``window="auto"``
@@ -63,6 +72,16 @@ class Algorithm:
     def step_fns(self, fused: bool):
         """(dense, sparse) step pair for the host-loop Pipe."""
         raise NotImplementedError
+
+    def lane_step(self, fused: bool):
+        """The dense step of a lane group laid out as one block-diagonal
+        graph (``exec/batch.py``: lane ``l``'s row ``r`` is row
+        ``l * n_pad + r``; ``aux`` has ``n_pad`` or one entries per lane).
+        The IPGC-family steps compare node ids only with ids of the same
+        lane, which the lane offset keeps in order, so their dense step
+        runs unchanged; an algorithm that reads ids by value overrides
+        this (JPL)."""
+        return self.step_fns(fused)[0]
 
     def resolve_fused(self, fused: "bool | None", *, default: bool) -> bool:
         """Map the caller's ``fused`` request (None = engine default) to

@@ -12,6 +12,7 @@ from repro_torch.core import ipgc
 class IPGC(Algorithm):
     name: str = "ipgc"
     shard_safe: bool = True
+    batch_safe: bool = True
     default_priority: str = "hash"
 
     def init_state(self, ig):

@@ -97,15 +97,14 @@ def _decide(pend, pr, nbr_max, nbr_min, rnd, cu):
     return new_c, newly
 
 
-def jpl_dense_step(ig: ipgc.IPGCGraph, colors: torch.Tensor,
-                   rnd: torch.Tensor, wl: Worklist, *, window: int = 128,
-                   force_hub: "bool | None" = None
-                   ) -> tuple[torch.Tensor, torch.Tensor, Worklist]:
-    """One topology-driven JPL round over all N rows (``window`` is part of
-    the protocol signature; JPL has no mex window and ignores it)."""
+def _jpl_dense(ig: ipgc.IPGCGraph, colors: torch.Tensor, ids: torch.Tensor,
+               rnd: torch.Tensor, wl: Worklist, force_hub: "bool | None"
+               ) -> tuple[torch.Tensor, Worklist]:
+    """A topology-driven JPL round over all N rows: row ``u`` draws
+    ``round_hash(ids[u], rnd)`` and takes colors ``2 rnd`` / ``2 rnd + 1``
+    (``rnd`` a 0-d round, or one round per row)."""
     n = ig.n_nodes
     active = wl.mask
-    ids = torch.arange(n, dtype=torch.int32, device=colors.device)
     cu = colors[:n]
     pend = active & (cu == NO_COLOR)
     pr = torch.where(pend, round_hash(ids, rnd), -1)
@@ -125,7 +124,36 @@ def jpl_dense_step(ig: ipgc.IPGCGraph, colors: torch.Tensor,
 
     still = active & ~newly
     items, count = compact_mask(still, wl.capacity, n)
-    return colors2, rnd + 1, Worklist(mask=still, items=items, count=count)
+    return colors2, Worklist(mask=still, items=items, count=count)
+
+
+def jpl_dense_step(ig: ipgc.IPGCGraph, colors: torch.Tensor,
+                   rnd: torch.Tensor, wl: Worklist, *, window: int = 128,
+                   force_hub: "bool | None" = None
+                   ) -> tuple[torch.Tensor, torch.Tensor, Worklist]:
+    """One topology-driven JPL round over all N rows (``window`` is part of
+    the protocol signature; JPL has no mex window and ignores it)."""
+    ids = torch.arange(ig.n_nodes, dtype=torch.int32, device=colors.device)
+    colors2, wl2 = _jpl_dense(ig, colors, ids, rnd, wl, force_hub)
+    return colors2, rnd + 1, wl2
+
+
+def jpl_lane_dense_step(ig: ipgc.IPGCGraph, colors: torch.Tensor,
+                        rnd: torch.Tensor, wl: Worklist, *, window: int = 128,
+                        force_hub: "bool | None" = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, Worklist]:
+    """``jpl_dense_step`` on each lane of a flattened lane group
+    (``exec/batch.py``): ``rnd`` holds one round per lane (lanes admitted
+    in different rounds of a stream carry different rounds), and each row
+    hashes its lane-local id ``u - l * n_pad`` with its own lane's round,
+    as the lane's graph alone would."""
+    b = rnd.shape[0]
+    n_pad = ig.n_nodes // b
+    ids = torch.arange(ig.n_nodes, dtype=torch.int32, device=colors.device)
+    ids.remainder_(n_pad)
+    rows_rnd = rnd[:, None].expand(b, n_pad).reshape(-1)
+    colors2, wl2 = _jpl_dense(ig, colors, ids, rows_rnd, wl, force_hub)
+    return colors2, rnd + 1, wl2
 
 
 def jpl_sparse_step(ig: ipgc.IPGCGraph, colors: torch.Tensor,
@@ -278,6 +306,9 @@ class JPL(Algorithm):
     #: activity is readable from the exchanged colors (see
     #: ``make_jpl_dist_steps``)
     shard_safe: bool = True
+    #: a round hashes lane-local ids with its lane's round
+    #: (``jpl_lane_dense_step``), so a lane equals the graph alone
+    batch_safe: bool = True
     uses_window: bool = False
 
     def init_state(self, ig):
@@ -289,6 +320,9 @@ class JPL(Algorithm):
     def step_fns(self, fused: bool):
         # a JPL round is already single-phase; fused == two-phase here
         return jpl_dense_step, jpl_sparse_step
+
+    def lane_step(self, fused: bool):
+        return jpl_lane_dense_step
 
     def resolve_fused(self, fused, *, default):
         return False                      # single step family

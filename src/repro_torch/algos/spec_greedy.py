@@ -25,6 +25,7 @@ class SpecGreedy(Algorithm):
     #: the distributed fused steps equal the local fused steps (DESIGN.md
     #: §6), so the declaration holds by construction
     shard_safe: bool = True
+    batch_safe: bool = True
 
     def init_state(self, ig):
         return init_ipgc_state(ig)

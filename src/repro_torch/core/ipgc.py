@@ -156,6 +156,112 @@ def prepare(g: Graph, *, priority: str = "hash", plan=None,
     return from_numpy(arrays, layout_kind=kind, device=device)
 
 
+def padded_graph(n_pad: int, k_pad: int, t_pad: int, nh_pad: int, *,
+                 lanes: int = 1, layout_kind: str = "ell-tail",
+                 device=None) -> IPGCGraph:
+    """Uninitialised arrays of ``lanes`` equal blocks of one shape class
+    (``exec/batch.py``'s flattened lane group; one block for
+    ``pad_prepared``), to be filled by ``pad_into``. The sentinel row of
+    ``priority`` is set."""
+    n, t, nh = lanes * n_pad, lanes * t_pad, lanes * nh_pad
+
+    def empty(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    return IPGCGraph(
+        n_nodes=n, ell_width=k_pad, n_hub=nh, ell_idx=empty(n, k_pad),
+        degrees=empty(n),
+        priority=torch.full((n + 1,), -1, dtype=torch.int32, device=device),
+        tail_src=empty(t), tail_dst=empty(t),
+        tail_valid=empty(t, dtype=torch.bool), tail_slot=empty(t),
+        hub_slot=empty(n),
+        hub_ids=torch.zeros(max(nh, 1), dtype=torch.int32, device=device),
+        layout_kind=layout_kind)
+
+
+def _offset_(x: torch.Tensor, old: int, new: int, off: int) -> None:
+    """In place: ``x + off``, except entries equal to ``old``, which become
+    ``new``."""
+    hit = x == old
+    x.add_(off).masked_fill_(hit, new)
+
+
+def pad_into(ig: "IPGCGraph | None", dst: IPGCGraph, lane: int,
+             lanes: int) -> None:
+    """Write ``ig``, padded to the shape class of ``dst``'s blocks, into
+    block ``lane`` of ``dst`` (``lanes`` equal blocks of ``n_pad`` rows,
+    ``t_pad`` tail entries and ``nh_pad`` hub slots), in place: its node
+    ids offset by ``lane * n_pad``, its hub slots by ``lane * nh_pad``,
+    its sentinel ``n`` mapped to ``dst``'s sentinel and its "not a hub"
+    slot to ``dst``'s neutral row. ``ig`` None writes an all-padding
+    block. The padding is inert by construction:
+
+      * pad nodes (rows ``n..n_pad``) have no ELL entries, degree 0 and
+        priority -1; they are nobody's neighbour and never enter the
+        worklist, so their colors stay ``PAD_COLOR`` forever;
+      * every padding entry of ``ell_idx``/``tail_dst`` is the sentinel
+        (so a padded row still ends at its first padding entry);
+      * extra tail entries are ``tail_valid=False``; extra hub slots have
+        no tail edges, so their forbidden/conflict rows are all-False;
+      * non-hub rows and extra tail entries point at the neutral row.
+    """
+    n_pad, nh_pad = dst.n_nodes // lanes, dst.n_hub // lanes
+    t_pad = dst.tail_src.shape[0] // lanes
+    sentinel, neutral = dst.n_nodes, dst.n_hub
+    off, hoff = lane * n_pad, lane * nh_pad
+    rows = slice(off, off + n_pad)
+    tails = slice(lane * t_pad, (lane + 1) * t_pad)
+    ell, deg = dst.ell_idx[rows], dst.degrees[rows]
+    prio, hub_slot = dst.priority[rows], dst.hub_slot[rows]
+    tail_src, tail_dst = dst.tail_src[tails], dst.tail_dst[tails]
+    tail_valid, tail_slot = dst.tail_valid[tails], dst.tail_slot[tails]
+    ell.fill_(sentinel)
+    deg.zero_()
+    prio.fill_(-1)
+    hub_slot.fill_(neutral)
+    tail_src.fill_(off)                  # clipped rows, never valid
+    tail_dst.fill_(sentinel)
+    tail_valid.zero_()
+    tail_slot.fill_(neutral)
+    dst.hub_ids[hoff:hoff + nh_pad].fill_(off)
+    if ig is None:
+        return
+    n, k, nh = ig.n_nodes, ig.ell_width, ig.n_hub
+    t = ig.tail_src.shape[0]
+    assert ig.layout_kind != "csr-segment", \
+        "csr-segment graphs have no batch padding (edge arrays)"
+    assert n_pad >= n and dst.ell_width >= k and t_pad >= t \
+        and nh_pad >= nh
+    ell[:n, :k] = ig.ell_idx
+    _offset_(ell[:n, :k], n, sentinel, off)
+    deg[:n] = ig.degrees
+    prio[:n] = ig.priority[:n]
+    tail_src[:t] = ig.tail_src
+    tail_src[:t] += off
+    tail_dst[:t] = ig.tail_dst
+    _offset_(tail_dst[:t], n, sentinel, off)
+    tail_valid[:t] = ig.tail_valid
+    tail_slot[:t] = ig.tail_slot
+    _offset_(tail_slot[:t], nh, neutral, hoff)
+    hub_slot[:n] = ig.hub_slot
+    _offset_(hub_slot[:n], nh, neutral, hoff)
+    if nh_pad:
+        dst.hub_ids[hoff:hoff + nh] = ig.hub_ids[:nh] + off
+
+
+def pad_prepared(ig: IPGCGraph, n_pad: int, k_pad: int, t_pad: int,
+                 nh_pad: int) -> IPGCGraph:
+    """Embed a prepared graph into a larger static shape class — the
+    batch-execution contract (DESIGN.md §9): ``pad_into`` one block. The
+    padding is inert (see ``pad_into``), so coloring the padded graph
+    (pad rows ``PAD_COLOR`` and outside the worklist) equals coloring the
+    original, row for row."""
+    dst = padded_graph(n_pad, k_pad, t_pad, nh_pad,
+                       layout_kind=ig.layout_kind, device=ig.device)
+    pad_into(ig, dst, 0, 1)
+    return dst
+
+
 def init_colors(n_nodes: int, device) -> torch.Tensor:
     """int32[N+1]; slot N is the gather sentinel (PAD_COLOR)."""
     c = torch.full((n_nodes + 1,), NO_COLOR, dtype=torch.int32,

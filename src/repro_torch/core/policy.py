@@ -10,6 +10,10 @@ threshold ``t`` with ``count > t`` meaning dense: the outlined regime
 fixes it for a whole chunk, so the policy is not called inside one.
 ``device_threshold`` derives it for any monotone callable by bisection,
 and ``AutoTuned`` refreshes it between chunks through ``observe_chunk``.
+
+The stream service's two scheduling policies live here too: a chunk
+policy (how many trips a lane group runs per dispatch) and an admission
+policy (which queued request gets a free lane).
 """
 from __future__ import annotations
 
@@ -160,3 +164,191 @@ class Timer:
 
     def __exit__(self, *exc):
         self.seconds = time.perf_counter() - self.t0
+
+
+# ---------------------------------------------------------------------------
+# chunk-size policies — the REFILL cadence of the streaming service
+# ---------------------------------------------------------------------------
+#
+# The hybrid H policy above decides dense-vs-sparse per iteration; a chunk
+# policy decides how many iterations a streamed lane group runs per device
+# dispatch before the scheduler may harvest drained lanes and refill them
+# from the queue (serve/stream.py, DESIGN.md §11). Chunk size is a pure
+# performance knob: per-request results are bit-identical for any cadence
+# (chunk boundaries only partition the trips of independent lanes), so
+# these policies trade dispatch overhead (large chunks) against
+# lane idle time between a drain and its refill (small chunks).
+
+
+@dataclasses.dataclass
+class FixedChunk:
+    """Constant refill cadence: every dispatch runs ``iters`` iterations."""
+
+    iters: int = 8
+
+    def __call__(self) -> int:
+        return max(int(self.iters), 1)
+
+    def observe_round(self, drained: int, resident: int, trips: int) -> None:
+        pass
+
+
+@dataclasses.dataclass
+class AdaptiveChunk:
+    """Drain-rate-steered refill cadence.
+
+    A chunk that drained nobody paid a scheduling round for nothing —
+    double the cadence (up to ``max_iters``); a chunk that drained half
+    or more of its resident lanes left them idle for up to ``iters``
+    trips each — halve it (down to ``min_iters``). Deterministic given
+    the observed round history, so a replayed request stream makes the
+    same cadence decisions.
+    """
+
+    min_iters: int = 2
+    max_iters: int = 64
+    iters: int = 8
+
+    def __call__(self) -> int:
+        return max(int(self.iters), 1)
+
+    def observe_round(self, drained: int, resident: int, trips: int) -> None:
+        if resident <= 0:
+            return
+        if drained == 0:
+            self.iters = min(self.iters * 2, self.max_iters)
+        elif 2 * drained >= resident:
+            self.iters = max(self.iters // 2, self.min_iters)
+
+
+def make_chunk_policy(chunk) -> "FixedChunk | AdaptiveChunk":
+    """Resolve a ``StreamConfig.chunk`` knob: an int pins a fixed cadence,
+    ``"auto"`` adapts from drain rates, a policy object passes through."""
+    if isinstance(chunk, bool):
+        raise TypeError(f"chunk must be an int, 'auto' or a policy, got {chunk!r}")
+    if isinstance(chunk, int):
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        return FixedChunk(chunk)
+    if chunk == "auto":
+        return AdaptiveChunk()
+    if callable(chunk) and hasattr(chunk, "observe_round"):
+        return chunk
+    raise TypeError(
+        f"chunk must be an int, 'auto' or a chunk policy object with "
+        f"__call__ + observe_round, got {chunk!r}")
+
+
+# ---------------------------------------------------------------------------
+# admission policies — WHO gets the next free lane of the streaming service
+# ---------------------------------------------------------------------------
+#
+# The chunk policies above decide WHEN the scheduler may refill; an
+# admission policy decides WHO gets a freed lane (serve/stream.py,
+# DESIGN.md §14). It is the serving-side analogue of Chen et al.'s
+# priority functions (arXiv 1606.06025): choosing *what* to schedule
+# next matters as much as raw step speed. Policies are duck-typed over
+# the stream's Ticket objects (``seq`` / ``priority`` / ``deadline_at``
+# fields) so this module never imports the serving layer.
+#
+# Protocol (two methods, both pure w.r.t. scheduler state):
+#
+#   order(queued, clock)      -> the admission-scan order (a permutation
+#                                of ``queued``; the stream validates).
+#                                ``clock`` is the service's injectable
+#                                timestamp source — call it only if the
+#                                decision needs "now", so clock-counting
+#                                tests see zero extra reads under FIFO.
+#   hopeless(ticket, clock, estimate) -> a reason string to shed the
+#                                ticket *instead of admitting it*, or
+#                                None. ``estimate`` is the service-time
+#                                forecast for the ticket's lane group
+#                                (the p90 of the per-rung service-time
+#                                histogram in ``obs/metrics.py``), or None
+#                                while that rung has no observations.
+#
+# Admission order never changes per-request results (bit-identity holds
+# for any order); it changes who waits — and, under deadlines, who is
+# worth admitting at all.
+
+
+@dataclasses.dataclass(frozen=True)
+class FIFOAdmission:
+    """Arrival order: oldest ticket first."""
+
+    def order(self, queued, clock) -> list:
+        return list(queued)
+
+    def hopeless(self, ticket, clock, estimate) -> "str | None":
+        return None
+
+
+@dataclasses.dataclass(frozen=True)
+class PriorityAdmission:
+    """Priority classes: higher ``Ticket.priority`` first, FIFO within a
+    class (``seq`` tiebreak keeps the sort stable and deterministic)."""
+
+    def order(self, queued, clock) -> list:
+        return sorted(queued, key=lambda t: (-t.priority, t.seq))
+
+    def hopeless(self, ticket, clock, estimate) -> "str | None":
+        return None
+
+
+@dataclasses.dataclass(frozen=True)
+class EDFAdmission:
+    """Earliest-deadline-first with shed-on-hopeless.
+
+    Tickets with deadlines are admitted soonest-deadline-first;
+    deadline-less tickets follow in FIFO order. A ticket whose deadline
+    cannot be met even if admitted *right now* — ``now + estimate >
+    deadline - slack``, with ``estimate`` the observed per-rung service
+    time — is shed with a reason instead of occupying a lane that a
+    feasible request could use. With no observations yet (``estimate is
+    None``) nothing is shed: the policy never guesses.
+    """
+
+    #: safety margin subtracted from the deadline before the feasibility
+    #: comparison (seconds on the service clock)
+    slack: float = 0.0
+    #: False = order by deadline but never shed
+    shed_hopeless: bool = True
+
+    def order(self, queued, clock) -> list:
+        return sorted(
+            queued,
+            key=lambda t: (t.deadline_at if t.deadline_at is not None
+                           else float("inf"), t.seq))
+
+    def hopeless(self, ticket, clock, estimate) -> "str | None":
+        if (not self.shed_hopeless or ticket.deadline_at is None
+                or estimate is None):
+            return None
+        now = clock()
+        if now + estimate > ticket.deadline_at - self.slack:
+            return (f"deadline hopeless: now={now:.6g} + estimated "
+                    f"service {estimate:.6g}s exceeds deadline "
+                    f"{ticket.deadline_at:.6g}"
+                    + (f" - slack {self.slack:.6g}" if self.slack else ""))
+        return None
+
+
+def make_admission_policy(admission
+                          ) -> "FIFOAdmission | PriorityAdmission | object":
+    """Resolve a ``StreamConfig.admission`` knob: ``"fifo"`` /
+    ``"priority"`` / ``"edf"`` name a built-in, a policy object with
+    ``order`` + ``hopeless`` passes through."""
+    if isinstance(admission, str):
+        try:
+            return {"fifo": FIFOAdmission, "priority": PriorityAdmission,
+                    "edf": EDFAdmission}[admission]()
+        except KeyError:
+            raise ValueError(
+                f"unknown admission policy {admission!r}; valid: "
+                "'fifo', 'priority', 'edf' (or a policy object)") from None
+    if callable(getattr(admission, "order", None)) and \
+            callable(getattr(admission, "hopeless", None)):
+        return admission
+    raise TypeError(
+        "admission must be 'fifo', 'priority', 'edf' or a policy object "
+        f"with order + hopeless methods, got {admission!r}")

@@ -46,6 +46,19 @@ def full_worklist(n_nodes: int, device) -> Worklist:
     )
 
 
+def stacked_worklist(real_ns: "list[int]", n_pad: int, device) -> Worklist:
+    """Lane-stacked worklists for batched execution (DESIGN.md §9): lane
+    ``i`` holds graph ``i``'s full worklist (its first ``real_ns[i]``
+    nodes active) in the shared ``n_pad`` shape class — pad rows inactive
+    in ``mask`` and the ``n_pad`` sentinel in ``items``; ``count`` is per
+    lane. Shapes ``(B, n_pad)``, ``(B, n_pad)`` and ``(B,)``."""
+    lanes = torch.arange(n_pad, dtype=torch.int32, device=device)
+    ns = torch.tensor(list(real_ns), dtype=torch.int32, device=device)
+    mask = lanes[None, :] < ns[:, None]
+    items = torch.where(mask, lanes[None, :], n_pad).to(torch.int32)
+    return Worklist(mask=mask, items=items, count=ns)
+
+
 def compact_mask(mask: torch.Tensor, capacity: int, n_nodes: int
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Dense mask -> compacted items (the atomic-push replacement): the

@@ -4,7 +4,7 @@ A chunk runs IPGC-style trips at one capacity bucket while the reference's
 trip condition holds, ``count > 0 and it < max_iter and count > low``. A
 ``"cond"`` chunk's trip is dense when ``count > thresh``; a ``"dense"`` or
 ``"sparse"`` chunk runs one kind only. The state of a run lives in static
-buffers (``_State``: colors, aux, mask, the items at the largest
+buffers (``TripState``: colors, aux, mask, the items at the largest
 capacity, and the counters ``[count, nd, it, ns]``), so that every trip
 reads and writes the same addresses: a trip calls the algorithm's step on
 the buffers (the items of bucket ``c`` are the prefix view ``items[:c]``)
@@ -31,9 +31,12 @@ back to eager execution or to the CPU.
 
 Before a graph is captured, its trip runs once on a side stream on clones
 of the state (never on the live state), so that the kernels are built and
-loaded and every PyTorch op has run once. The graphs of one runner share
-one memory pool (``torch.cuda.graph_pool_handle``): a trip's intermediates
-are freed at the end of its capture, and only one graph replays at a time.
+loaded and every PyTorch op has run once; the warm-up's intermediates are
+then returned to the device, so that the capture's pool can take their
+memory (a lane group's trip may need tens of GB). The graphs of one runner
+share one memory pool (``torch.cuda.graph_pool_handle``): a trip's
+intermediates are freed at the end of its capture, and only one graph
+replays at a time.
 
 Counters: ``kernels._build.KERNEL_LAUNCHES`` and ``core.ipgc``'s counters
 move when a step's Python runs, so here once per warm-up and once per
@@ -41,6 +44,10 @@ capture. ``REPLAYED_LAUNCHES`` adds, per replay, the kernel launches the
 replayed trip captured: the launches of the trips that ran.
 ``CHUNK_COUNTS`` counts chunks, counter reads, graphs captured and the
 microseconds spent capturing them (warm-up included).
+
+``TripState``, ``capture_trip`` and ``replay`` are shared with the lane
+runner of the batched Pipe (``exec/batch.py``), whose trips and reads the
+same counters count.
 """
 from __future__ import annotations
 
@@ -61,21 +68,32 @@ REPLAYED_LAUNCHES = CounterGroup("outlined.replayed_launches",
 CHUNK_COUNTS = CounterGroup("outlined.chunks",
                             ("chunks", "reads", "graphs", "capture_us"))
 
-#: the counters' slots in ``_State.ctr``: a dense trip adds one to
+#: the counters' slots in ``TripState.ctr``: a dense trip adds one to
 #: ``ctr[1:3]`` (nd, it), a sparse trip to ``ctr[2:4]`` (it, ns)
 COUNT, ND, IT, NS = range(4)
 
 
 @dataclasses.dataclass
-class _State:
+class TripState:
+    """The mutable state of a run, at static addresses. A lane group
+    (``exec/batch.py``) keeps a column of counters per lane and its
+    per-lane limits in ``lim``."""
+
     colors: torch.Tensor      # int32[N+1]
     aux: torch.Tensor         # the algorithm's aux (IPGC bases, JPL round)
     mask: torch.Tensor        # bool[N]
     items: torch.Tensor       # int32[capacity], the largest bucket
-    ctr: torch.Tensor         # int32[4]: count, nd, it, ns
+    #: int32[4] (a lane group: int32[4, b]): count, nd, it, ns
+    ctr: torch.Tensor
+    #: a lane group's int32[2, b]: threshold, max_iter
+    lim: "torch.Tensor | None" = None
 
-    def clone(self) -> "_State":
-        return _State(*(t.clone() for t in dataclasses.astuple(self)))
+    def clone(self) -> "TripState":
+        return TripState(*(None if t is None else t.clone()
+                           for t in self.tensors()))
+
+    def tensors(self) -> list:
+        return [getattr(self, f.name) for f in dataclasses.fields(self)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +110,42 @@ class _Trip:
     def __init__(self, graph, launches: dict):
         self.graph = graph
         self.launches = {k: v for k, v in launches.items() if v}
+
+
+def capture_trip(trip, state, *, pool, stream) -> _Trip:
+    """Capture ``trip(state)`` as a CUDA graph in ``pool`` on the side
+    ``stream``, after one warm-up ``trip(state.clone())`` there (the
+    kernels built and loaded, every PyTorch op run once, the live state
+    untouched) whose intermediates go back to the device before the
+    capture. A failed capture raises."""
+    t0 = time.perf_counter()
+    cur = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(cur)
+    with torch.cuda.stream(stream):
+        trip(state.clone())
+    cur.wait_stream(stream)
+    torch.cuda.empty_cache()
+    graph = torch.cuda.CUDAGraph()
+    before = _build.KERNEL_LAUNCHES.as_dict()
+    with torch.cuda.graph(graph, pool=pool, stream=stream):
+        trip(state)
+    launches = {k: v - before[k] for k, v in _build.KERNEL_LAUNCHES.items()}
+    CHUNK_COUNTS["graphs"] += 1
+    CHUNK_COUNTS["capture_us"] += int((time.perf_counter() - t0) * 1e6)
+    return _Trip(graph, launches)
+
+
+def replay(trip: _Trip) -> None:
+    """One replay of a captured trip with CUDA's sync debug mode at
+    "error", counted in ``REPLAYED_LAUNCHES``."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trip.graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    for k, v in trip.launches.items():
+        REPLAYED_LAUNCHES[k] += v
 
 
 class ChunkRunner:
@@ -112,11 +166,11 @@ class ChunkRunner:
         self.force_hub = force_hub
         self.dense_fn, self.sparse_fn = alg.step_fns(fused)
         colors, aux, wl = alg.init_state(ig)
-        self.state = _State(colors, aux, wl.mask,
-                            torch.empty(capacity, dtype=torch.int32,
-                                        device=ig.device),
-                            torch.zeros(4, dtype=torch.int32,
-                                        device=ig.device))
+        self.state = TripState(colors, aux, wl.mask,
+                               torch.empty(capacity, dtype=torch.int32,
+                                           device=ig.device),
+                               torch.zeros(4, dtype=torch.int32,
+                                           device=ig.device))
         self.cuda = ig.device.type == "cuda"
         if not self.cuda and ig.device.type != "cpu":
             raise ValueError(f"no chunk runner for tensors on {ig.device}")
@@ -145,7 +199,7 @@ class ChunkRunner:
         s.ctr.zero_()
         s.ctr[COUNT] = n
 
-    def _trip(self, s: _State, cap: int, dense: bool) -> None:
+    def _trip(self, s: TripState, cap: int, dense: bool) -> None:
         """One trip on the buffers of ``s``: the step, its outputs copied
         back, the trip counted."""
         items = s.items[:cap]
@@ -163,41 +217,19 @@ class ChunkRunner:
         s.ctr[first:first + 2].add_(1)
 
     def _captured(self, cap: int, dense: bool) -> _Trip:
-        """The CUDA graph of one trip at ``cap``, captured at first use
-        after a warm-up trip on clones of the state."""
+        """The CUDA graph of one trip at ``cap``, captured at first use."""
         trip = self.trips.get((cap, dense))
-        if trip is not None:
-            return trip
-        t0 = time.perf_counter()
-        cur = torch.cuda.current_stream(self.ig.device)
-        self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
-            self._trip(self.state.clone(), cap, dense)
-        cur.wait_stream(self.stream)
-        graph = torch.cuda.CUDAGraph()
-        before = _build.KERNEL_LAUNCHES.as_dict()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            self._trip(self.state, cap, dense)
-        launches = {k: v - before[k]
-                    for k, v in _build.KERNEL_LAUNCHES.items()}
-        trip = self.trips[(cap, dense)] = _Trip(graph, launches)
-        CHUNK_COUNTS["graphs"] += 1
-        CHUNK_COUNTS["capture_us"] += int((time.perf_counter() - t0) * 1e6)
+        if trip is None:
+            trip = self.trips[(cap, dense)] = capture_trip(
+                lambda s: self._trip(s, cap, dense), self.state,
+                pool=self.pool, stream=self.stream)
         return trip
 
     def _run_trip(self, cap: int, dense: bool) -> None:
-        if not self.cuda:
+        if self.cuda:
+            replay(self._captured(cap, dense))
+        else:
             self._trip(self.state, cap, dense)
-            return
-        trip = self._captured(cap, dense)
-        prev = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            trip.graph.replay()
-        finally:
-            torch.cuda.set_sync_debug_mode(prev)
-        for k, v in trip.launches.items():
-            REPLAYED_LAUNCHES[k] += v
 
     def run(self, cap: int, *, branch: str, thresh: int, low: int,
             max_iter: int, count: int, it: int) -> ChunkResult:

@@ -19,9 +19,16 @@ The dist regime runs the same loop over the distributed steps
 per (graph content, shard count, balance), so every algorithm run on one
 partition builds it once, and an equal graph rebuilt per request reuses
 it.
+
+``run_batch`` colors many graphs at once as flattened lane groups
+(``exec/batch.py``), and ``stream`` opens the continuous-batching service
+over this session (``serve/stream.py``). Both pin the cache entries a run
+touches (``pin``), so a bounded session never evicts a live run's own
+entries mid-flight.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import threading
@@ -40,10 +47,11 @@ from repro_torch.core.worklist import (bucket_capacities, chunk_lower_bounds,
                                        pick_bucket, resize_items)
 from repro_torch.device import resolve_device
 from repro_torch.exec.chunk import ChunkRunner
-from repro_torch.exec.spec import NOT_PORTED, ExecutionSpec
+from repro_torch.exec.spec import ExecutionSpec
 from repro_torch.graphs.csr import Graph
 from repro_torch.graphs.partition import prepare_partition
-from repro_torch.obs.report import dense_exchange_bytes
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.report import RunReport, dense_exchange_bytes
 
 
 @dataclasses.dataclass
@@ -54,14 +62,15 @@ class CacheStats:
     misses: int = 0
     evictions: int = 0
 
+    @property
+    def hit_rate(self) -> float:
+        total = self.hits + self.misses
+        return self.hits / total if total else 0.0
 
-def _graph_key(g) -> tuple:
-    """Graph half of the prep cache key: identity + static fields. Every
-    entry holds a reference to ``g``, so the id cannot be recycled while
-    the entry lives."""
-    if isinstance(g, Graph):
-        return ("graph", id(g), g.name, g.n_nodes, g.n_edges)
-    return ("ig", id(g), g.n_nodes, g.ell_width, g.n_hub, g.layout_kind)
+    def as_dict(self) -> dict:
+        return {"hits": self.hits, "misses": self.misses,
+                "evictions": self.evictions,
+                "hit_rate": round(self.hit_rate, 4)}
 
 
 #: id(graph) -> its content key, dropped when the graph is collected
@@ -110,19 +119,66 @@ class Session:
         self.cache: dict = {} if cache is None else cache
         self.max_entries = max_entries
         self.stats = CacheStats()
-        self._lock = threading.Lock()
+        self._pin_depth = 0
+        self._pinned: set = set()
+        #: reentrant: a ``build`` may look up other entries, and a stream's
+        #: pump thread shares the session with its caller
+        self._lock = threading.RLock()
+
+    @staticmethod
+    def graph_key(g) -> tuple:
+        """Graph half of the keys of the entries made from ``g`` (``"prep"``,
+        ``"runners"``, ``run_batch``'s ``"stack"``): identity + static
+        fields. Every entry holds a reference to ``g``, so the id cannot be
+        recycled while the entry lives."""
+        if isinstance(g, Graph):
+            return ("graph", id(g), g.name, g.n_nodes, g.n_edges)
+        return ("ig", id(g), g.n_nodes, g.ell_width, g.n_hub, g.layout_kind)
+
+    @contextlib.contextmanager
+    def pin(self):
+        """Exempt every entry touched inside the block from FIFO eviction,
+        so a multi-entry run (``run_batch``, a stream round) never evicts
+        its own entries mid-flight. While pinned the bound may be
+        exceeded; the outermost exit re-applies it against the oldest
+        unpinned entries. Nests."""
+        with self._lock:
+            self._pin_depth += 1
+        try:
+            yield self
+        finally:
+            with self._lock:
+                self._pin_depth -= 1
+                if self._pin_depth == 0:
+                    self._pinned.clear()
+                    self._evict()
+
+    def _evict(self) -> None:
+        if self.max_entries is None:
+            return
+        while len(self.cache) > self.max_entries:
+            # FIFO: the entry just added is last, so it never evicts
+            # itself; a live run's pinned entries are skipped
+            victim = next((k for k in self.cache if k not in self._pinned),
+                          None)
+            if victim is None:
+                return
+            self.cache.pop(victim)
+            self.stats.evictions += 1
 
     def cached(self, key: tuple, build):
         with self._lock:
-            if key in self.cache:
+            hit = key in self.cache
+            if hit:
                 self.stats.hits += 1
-                return self.cache[key]
-            self.stats.misses += 1
-            entry = self.cache[key] = build()
-            while (self.max_entries is not None
-                   and len(self.cache) > self.max_entries):
-                self.cache.pop(next(iter(self.cache)))
-                self.stats.evictions += 1
+            else:
+                self.stats.misses += 1
+                self.cache[key] = build()
+            entry = self.cache[key]
+            if self._pin_depth > 0:
+                self._pinned.add(key)
+            if not hit:
+                self._evict()
             return entry
 
     def run(self, spec: ExecutionSpec, g, *, policy: "Policy | None" = None,
@@ -148,8 +204,57 @@ class Session:
         return self.cached(key, lambda: prepare_partition(
             g, n_shards, balance=balance))
 
-    def run_batch(self, spec: ExecutionSpec, graphs):
-        raise NotImplementedError(NOT_PORTED["batch"])
+    def run_batch(self, spec: ExecutionSpec, graphs,
+                  *, map_to_original: bool = False, trace=None):
+        """Color many graphs at once (``exec/batch.py``); results in input
+        order, each equal to ``run(spec, g)`` in the host regime.
+        ``map_to_original=True`` maps each lane's colors back through its
+        graph's ``Permutation``.
+
+        With ``trace`` (True or a ``Trace``), returns a batch-level
+        ``RunReport`` instead: ``.result`` holds the results,
+        ``extra["lanes"]`` the per-lane summaries, and the trace one
+        ``batch.dispatch`` span per shape-class bucket."""
+        from repro_torch.exec import batch as _batch
+        if trace is None or trace is False:
+            return _batch.run_batch(self, spec, graphs,
+                                    map_to_original=map_to_original)
+        tr = obs_trace.Trace() if trace is True else trace
+        stats0 = dataclasses.replace(self.stats)
+        graphs = list(graphs)
+        with obs_trace.tracing(tr):
+            with tr.span("batch.run", graphs=len(graphs)) as sp:
+                results = _batch.run_batch(
+                    self, spec, graphs, map_to_original=map_to_original)
+        lanes = [{"graph": g.name, "n_nodes": g.n_nodes,
+                  "n_colors": r.n_colors, "iterations": r.iterations,
+                  "mode_trace": r.mode_trace}
+                 for g, r in zip(graphs, results)]
+        return RunReport(
+            regime="batch", algo=str(spec.algo), graph=f"<{len(graphs)}>",
+            n_nodes=sum(g.n_nodes for g in graphs),
+            n_colors=max((r.n_colors for r in results), default=0),
+            iterations=max((r.iterations for r in results), default=0),
+            host_dispatches=len(tr.find("batch.dispatch")),
+            timing={"total_seconds": sp.seconds},
+            cache=self._cache_section(stats0),
+            result=results, trace=tr, extra={"lanes": lanes})
+
+    def stream(self, spec: ExecutionSpec, config=None):
+        """A continuous-batching service over this session
+        (``serve/stream.py``): requests are submitted as they arrive,
+        lanes that drain at a chunk boundary are refilled from the queue,
+        and each result equals ``run(spec, g)`` in the host regime."""
+        from repro_torch.serve.stream import StreamSession
+        return StreamSession(self, spec, config)
+
+    def _cache_section(self, stats0: CacheStats) -> dict:
+        """The cache totals and this run's delta."""
+        return {**self.stats.as_dict(),
+                "run_delta": {
+                    "hits": self.stats.hits - stats0.hits,
+                    "misses": self.stats.misses - stats0.misses,
+                    "evictions": self.stats.evictions - stats0.evictions}}
 
     def _prepare(self, spec: ExecutionSpec, g, alg):
         """(prepared IPGCGraph, resolved window, chunk runners), cached per
@@ -168,7 +273,8 @@ class Session:
                                  "reads the degree histogram)")
             return g, 128, None
         plan = resolve_plan(g, spec.layout)
-        key = ("prep", _graph_key(g), alg, spec.priority, plan, spec.window)
+        key = ("prep", self.graph_key(g), alg, spec.priority, plan,
+               spec.window)
 
         def build():
             if spec.window != "auto":
@@ -247,7 +353,7 @@ class Session:
                                   default=OUTLINED_FUSED[self.device.type])
         ig, window, runners = self._prepare(spec, g, alg)
         if runners is None:
-            _, runners = self.cached(("runners", _graph_key(ig), window),
+            _, runners = self.cached(("runners", self.graph_key(ig), window),
                                      lambda: (ig, {}))
         n = ig.n_nodes
         pol = policy or make_policy(spec.mode, spec.h)

@@ -3,20 +3,16 @@
 
 The host regime (the per-iteration host loop), the outlined regime (one
 chunk per capacity bucket) and the distributed regime (the sharded Pipe,
-dense exchange) are ported. Lane batching is named here so that asking
-for it fails with the ROADMAP item that brings it.
+dense exchange) run a spec on one graph; lane batching (``run_batch``, the
+stream service) replays the host regime on many graphs at once and checks
+its spec with ``validate_batchable``. The port has no ``impl`` or
+``tile_rows`` knob: on a CUDA device the steps always run its kernels.
 """
 from __future__ import annotations
 
 import dataclasses
 
 REGIMES = ("host", "outlined", "dist")
-
-#: regimes of the reference the port does not run yet -> ROADMAP item
-NOT_PORTED = {
-    "batch": "lane batching is not ported yet (ROADMAP Queue A item 6)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionSpec:
@@ -59,6 +55,39 @@ class ExecutionSpec:
     def resolved_algo(self):
         from repro_torch.algos import get_algorithm
         return get_algorithm(self.algo)
+
+    def validate_batchable(self):
+        """Check this spec can run lane-batched — the admission contract
+        shared by ``Session.run_batch`` and the stream service
+        (``exec/batch.py``, ``serve/stream.py``). Returns the resolved
+        algorithm. Lane batching replays the host regime per lane, with
+        the D/S trace rebuilt from per-lane counts against a monotone
+        policy threshold."""
+        alg = self.resolved_algo()
+        if self.regime != "host":
+            raise ValueError(
+                f"lane-batched execution replays host-regime semantics "
+                f"(fused default, window/policy resolution) and would "
+                f"silently ignore the {self.regime!r} regime's knobs; "
+                "pass a spec with regime='host'")
+        if not alg.batch_safe:
+            raise ValueError(
+                f"algorithm {alg.name!r} is not batch-safe: "
+                f"{alg.batch_unsafe_reason or 'no declared batch contract'}")
+        if self.mode.startswith("dist-") or self.mode == "hybrid-auto":
+            raise ValueError(
+                f"lane-batched execution cannot replay mode {self.mode!r} "
+                "per lane: the batched Pipe needs a monotone per-lane "
+                "count threshold (hybrid / topology / data)")
+        return alg
+
+    def static_key(self) -> tuple:
+        """The spec half of a session cache key: every field, the
+        algorithm as its resolved (frozen, hashable) instance."""
+        return (self.regime, self.mode, self.resolved_algo(), self.layout,
+                self.h, self.window, self.bucket_ratio, self.max_iter,
+                self.priority, self.fused, self.n_shards, self.balance,
+                self.exchange)
 
 
 def spec_for(*, mode: str = "hybrid", algo: "str | object" = "ipgc",

@@ -1,8 +1,8 @@
 """Graph substrate of the port: the staged construction pipeline
 (ingest -> reorder -> layout plan -> assembly, DESIGN.md §8), CSR/ELL/COO
 structures, the dataset registry and the partitioning of the distributed
-Pipe. Host-side numpy, a copy of ``repro.graphs`` (minus batching,
-sampling and the boundary sets of the packed exchange)."""
+Pipe. Host-side numpy, a copy of ``repro.graphs`` (minus sampling and
+the boundary sets of the packed exchange)."""
 from repro_torch.graphs.csr import (  # noqa: F401
     Graph,
     GraphArrays,
@@ -18,5 +18,7 @@ from repro_torch.graphs.registry import (  # noqa: F401
     clear_dataset_cache,
     dataset_names,
     get_dataset,
+    get_dataset_batch,
+    heavy_tail_requests,
     register_dataset,
 )

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain version,
-and colorings (host loop, outlined regime, distributed Pipe) and BFS on
-the card against the same runs on the CPU. Needs a
+and colorings (host loop, outlined regime, distributed Pipe, lane
+batching and the stream service) and BFS on the card against the same
+runs on the CPU. Needs a
 CUDA device and nvcc; skips without a device. Imports no JAX, so it runs
 where only PyTorch is installed:
 
@@ -366,3 +367,160 @@ def test_card_color_outlined_equals_cpu(dev):
     np.testing.assert_array_equal(a.colors, b.colors)
     assert (a.iterations, a.mode_trace, a.host_dispatches) == \
         (b.iterations, b.mode_trace, b.host_dispatches)
+
+
+# ---------------------------------------------------------------------------
+# lane batching and the stream service on the card
+# ---------------------------------------------------------------------------
+
+def _batch_graphs():
+    return [repro_torch.get_dataset(n, scale=s, layout="ell-tail",
+                                    ell_cap=128)
+            for n, s in (("kron_g500-logn21_s", 0.5), ("europe_osm_s", 0.02),
+                         ("hollywood-2009_s", 0.05), ("europe_osm_s", 0.005),
+                         ("europe_osm_s", 0.004))]
+
+
+def _lane_groups(session):
+    """The lane groups ``session`` keeps in its run_batch entries."""
+    return [entry[1] for key, entry in session.cache.items()
+            if key[0] == "stack"]
+
+
+@pytest.mark.parametrize("algo,fused,kernels", OUTLINED)
+def test_card_run_batch_equals_cpu_and_solo(dev, algo, fused, kernels):
+    """run_batch on the card: every lane equal to the CPU's run_batch in
+    every field and to the card's solo run; the cold call captures one
+    trip per lane group, the warm call captures nothing and replays; the
+    kernels' launches come from the replays."""
+    from repro_torch.exec import ExecutionSpec, Session, chunk
+    graphs = _batch_graphs()
+    s = Session(dev)
+    spec = ExecutionSpec(regime="host", algo=algo, fused=fused)
+    with chunk.CHUNK_COUNTS.scope() as counts:
+        a = s.run_batch(spec, graphs)
+        captured = counts["graphs"]
+        assert captured == len(_lane_groups(s)) > 0
+        with chunk.REPLAYED_LAUNCHES.scope() as replayed:
+            b = s.run_batch(spec, graphs)
+            assert all(replayed[k] > 0 for k in kernels)
+        assert counts["graphs"] == captured
+    c = Session("cpu").run_batch(spec, graphs)
+    for g, ra, rb, rc in zip(graphs, a, b, c):
+        for r in (rb, rc):
+            np.testing.assert_array_equal(ra.colors, r.colors)
+            assert (ra.n_colors, ra.iterations, ra.mode_trace, ra.counts) \
+                == (r.n_colors, r.iterations, r.mode_trace, r.counts)
+        solo = s.run(spec, g)
+        np.testing.assert_array_equal(ra.colors, solo.colors)
+        assert (ra.n_colors, ra.iterations, ra.mode_trace) == \
+            (solo.n_colors, solo.iterations, solo.mode_trace)
+        repro_torch.verify_coloring(g, ra.colors)
+
+
+def test_card_lane_replays_are_sync_free(dev):
+    """Every captured lane-group trip replays with CUDA's sync debug mode
+    at "error" (after the runs: drained lanes make it a no-op)."""
+    from repro_torch.exec import ExecutionSpec, Session
+    s = Session(dev)
+    for algo, fused in (("ipgc", False), ("ipgc", True), ("jpl", None)):
+        s.run_batch(ExecutionSpec(regime="host", algo=algo, fused=fused),
+                    _batch_graphs())
+    trips = [t for st in _lane_groups(s) for t in st.trips.values()]
+    assert len(trips) >= 3
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for trip in trips:
+            trip.graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("algo", ["ipgc", "jpl", "spec-greedy"])
+def test_card_stream_equals_cpu(dev, algo):
+    """A ManualClock stream on the card equals the same stream on the CPU
+    in every ticket and in stats(); lanes refill mid-stream, so lanes at
+    different rounds (JPL: different round counters) share one trip."""
+    from repro_torch.exec import ExecutionSpec, Session
+    from repro_torch.serve import ManualClock, StreamConfig
+    graphs = _batch_graphs()
+    runs = []
+    for device in (dev, "cpu"):
+        stream = Session(device).stream(
+            ExecutionSpec(regime="host", algo=algo, window=64),
+            StreamConfig(lanes=2, chunk=3, clock=ManualClock(tick=0.25)))
+        tickets = [stream.submit(g) for g in graphs + graphs[1:4]]
+        stream.drain()
+        stats = stream.stats()
+        stats.pop("dispatch_seconds")
+        runs.append((tickets, stats))
+    (ta, sa), (tb, sb) = runs
+    assert sa == sb
+    assert any(tk.admit_round > 1 for tk in ta)
+    fields = ("status", "reason", "admit_round", "drain_round", "chunks",
+              "enqueue_s", "admit_s", "drain_s")
+    for a, b in zip(ta, tb):
+        assert [getattr(a, f) for f in fields] == \
+            [getattr(b, f) for f in fields]
+        np.testing.assert_array_equal(a.result.colors, b.result.colors)
+        assert (a.result.iterations, a.result.mode_trace) == \
+            (b.result.iterations, b.result.mode_trace)
+
+
+def test_card_failing_capture_raises(dev):
+    """A trip that synchronises cannot be captured: the capture error
+    reaches the caller, and nothing runs eagerly in its place."""
+    from repro_torch.algos import get_algorithm
+    from repro_torch.core import ipgc
+    from repro_torch.exec import batch
+    alg = get_algorithm("ipgc")
+    g = repro_torch.get_dataset("europe_osm_s", scale=0.005,
+                                layout="ell-tail", ell_cap=128)
+    ig = ipgc.prepare(g, device=dev)
+    sc = batch.shape_class_for([ig], 2048, 64, "ell-tail")
+    st = batch.fresh_lane_state(sc, alg, 2, dev)
+    st.admit(1, ig, 0, 100)
+    dense = alg.lane_step(False)
+
+    def syncing(ig_, colors, aux, wl, **kw):
+        if int(wl.mask.sum()) < 0:          # a host read: no capture
+            raise AssertionError
+        return dense(ig_, colors, aux, wl, **kw)
+
+    before = st.buf.colors.clone()
+    with pytest.raises(RuntimeError):
+        st.run(1, step=syncing, window=64, force_hub=False)
+    torch.cuda.synchronize()
+    assert torch.equal(st.buf.colors, before)
+    assert st.host[:, 1].tolist() == [ig.n_nodes, 0, 0, 0]
+
+
+def test_card_capture_refused_before_it_starts(dev, monkeypatch):
+    """A trip whose reckoned intermediates are more than the card has free
+    is refused with LaneMemoryError before its warm-up and capture: no
+    graph is captured and the state is untouched. With room, the same
+    group runs."""
+    from repro_torch.algos import get_algorithm
+    from repro_torch.core import ipgc
+    from repro_torch.exec import batch
+    alg = get_algorithm("ipgc")
+    g = repro_torch.get_dataset("europe_osm_s", scale=0.005,
+                                layout="ell-tail", ell_cap=128)
+    ig = ipgc.prepare(g, device=dev)
+    sc = batch.shape_class_for([ig], 2048, 64, "ell-tail")
+    st = batch.fresh_lane_state(sc, alg, 2, dev)
+    st.admit(1, ig, 0, 100)
+    step = alg.lane_step(False)
+    before = st.buf.colors.clone()
+    monkeypatch.setattr(batch, "_free_bytes", lambda device: 1024)
+    with pytest.raises(batch.LaneMemoryError, match="the trip of a lane "
+                       r"group of 2 x .* \(trip "):
+        st.run(1, step=step, window=64, force_hub=False)
+    assert not st.trips
+    torch.cuda.synchronize()
+    assert torch.equal(st.buf.colors, before)
+    monkeypatch.undo()
+    assert st.run(1, step=step, window=64, force_hub=False) == 1
+    assert len(st.trips) == 1

@@ -75,8 +75,12 @@ def test_unported_regimes_raise(kw, what):
     g = get_dataset("europe_osm_s", scale=0.01, layout="pure-ell")
     with pytest.raises(NotImplementedError, match=what):
         repro_torch.color(g, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="batch"):
-        Session("cpu").run_batch(ExecutionSpec(), [g])
+    s = Session("cpu")
+    (batched,) = s.run_batch(ExecutionSpec(), [g])
+    solo = s.run(ExecutionSpec(), g)
+    np.testing.assert_array_equal(batched.colors, solo.colors)
+    assert (batched.n_colors, batched.iterations, batched.mode_trace) == \
+        (solo.n_colors, solo.iterations, solo.mode_trace)
 
 
 def test_session_caches_prepared_graphs():
