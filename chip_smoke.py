@@ -28,24 +28,42 @@ each failing the script on any error:
    sync debug mode set to "error" everywhere but the per-iteration count
    read; hybrid BFS (``repro_torch.core.bfs.bfs``) on kron in its three
    modes, which must give the same levels; the paper's baselines
-   ``jpl_color`` and ``vb_color`` on kron;
-4. dist: the distributed Pipe (dense exchange) on kron with four shards on
-   the one card (``color_distributed(devices=[cuda:0] * 4)``: ipgc fused
-   and two-phase, spec-greedy, jpl) and on europe with one shard per
-   visible card (``color(mode="dist-hybrid")``: ipgc fused, the no-hub
-   ``fused_step`` over 50.8M rows); launch and exchange counts per run (1
-   exchange per fused iteration and JPL round, 2 per two-phase one), a
-   verified coloring, and a replay of each under sync debug "error" (the
-   kron jpl run stops at 200 of its 815 rounds, ``DIST_ROUND_CAP``, to
-   leave time for phase 6: its partial coloring is verified conflict-free
-   without completeness); the
-   ``fused_step`` kernel row is timed at the kron S=4 dense shape, as
-   shard 0's fused dense step hands it over;
+   ``jpl_color`` and ``vb_color`` on kron. The kron ipgc two-phase run is
+   repeated traced (``color(..., trace=True)``, a ``RunReport``): equal to
+   the untraced run, with the same kernel launches (the report's work
+   profile runs after the timed run, its launches scoped away), both
+   runs' seconds logged (``traced`` lines);
+4. dist: the distributed Pipe on kron with four shards on the one card
+   (``color_distributed(devices=[cuda:0] * 4)``: ipgc fused and
+   two-phase, spec-greedy, jpl) and on europe with one shard per visible
+   card (``color(mode="dist-hybrid")``, the four colorings; ipgc fused
+   runs the no-hub ``fused_step`` over 50.8M rows); launch and exchange
+   counts per run (1 exchange per fused iteration and JPL round, 2 per
+   two-phase one), a verified coloring, and a replay of each under sync
+   debug "error" (spec-greedy's runs the ipgc fused steps, replayed
+   already; the kron jpl run stops at 64 of its 815 rounds,
+   ``DIST_ROUND_CAP``, to leave time for the other phases: its partial
+   coloring is verified conflict-free without completeness); the
+   ``fused_step``
+   kernel row is timed at the kron S=4 dense shape, as shard 0's fused
+   dense step hands it over. Then the boundary exchange
+   (``exchange="boundary"`` and ``"auto"``: per-shard views, a packed
+   publish of the changed boundary vertices or a dense swap, chosen on
+   the card) for kron's ipgc fused and two-phase and europe's four
+   colorings: each equal to its dense-exchange run in colors, iterations
+   and mode trace, one ``boundary_pack`` and one ``dense_swap`` counted a
+   publish, the ledger's bytes logged against the dense run's, and the run
+   replayed under sync debug "error" (kron's first
+   ``BOUNDARY_REPLAY_ITERS`` iterations, europe's whole); the kron auto
+   ipgc fused run is repeated traced as in phase 3;
 5. card vs CPU: kron at scale 1 colored (ipgc, jpl, spec-greedy) and
    searched (BFS, three modes) on the card and on the CPU gives identical
    results, and BFS equals the host oracle; the distributed Pipe at 1 and
    4 shards gives the same colors, iterations and trace on the card, on
-   the CPU and in the host engine on the same partitioned graph; the
+   the CPU and in the host engine on the same partitioned graph, and its
+   auto exchange at 4 shards (ipgc two-phase) the same as the CPU's in
+   every field but the times (exchange trace and bytes included) and as
+   the dense exchange's colors, iterations and trace; the
    outlined regime on the card equals the outlined regime on the CPU in
    every field but ``tti`` and ``total_seconds``, and the card's host loop
    in colors, colors used, iterations and mode trace;
@@ -71,7 +89,9 @@ each failing the script on any error:
    outlined (warm): the device's busy share over the run, device time by
    op name (this port's kernels and the rest), and launches and device
    operations per iteration. The fused family wins ``fused=None`` on CUDA
-   where it is faster warm on both graphs (``outlined.fused_rule``).
+   where it is faster warm on both graphs (``outlined.fused_rule``). The
+   kron ipgc two-phase warm run is repeated traced as in phase 3 (the
+   same kernel and replayed launches).
 
 7. batch and stream (after phase 6 and the card-vs-CPU checks, reusing
    phase 3's graphs and results): the heavy-tail request mix
@@ -870,14 +890,16 @@ def sparse_row(rec: Recorder, reps: int) -> dict:
 
 
 def path_phase(g, build_s: float, rows: "dict | None" = None,
-               reps: int = 10, results: "dict | None" = None) -> list[dict]:
+               reps: int = 10, results: "dict | None" = None,
+               traced: bool = False) -> list[dict]:
     """Every coloring path through ``repro_torch.color`` on ``g``; returns
     the kernel launches of each run. The ipgc and jpl Pipes are replayed
     with the sync check. With ``rows`` (the kernels line's rows), the ipgc
     runs record the sparse steps' calls of ``conflict`` and
     ``fused_compact`` and time each at its most-used capacity bucket. With
     ``results``, each run's ``ColoringResult`` goes there under
-    ``(algo, fused)``."""
+    ``(algo, fused)``. With ``traced``, the ipgc two-phase run is repeated
+    traced (``traced_check``)."""
     launches = []
     replay_ig = repro_torch.prepare(g)
     for algo, fused, need in COLORINGS:
@@ -926,6 +948,10 @@ def path_phase(g, build_s: float, rows: "dict | None" = None,
                                  "from color()")
         log(phase="path.sync_free_replay", graph=g.name, algo=algo,
             fused=fused, iterations=iters, identical=True)
+        if traced and (algo, fused) == ("ipgc", False):
+            traced_check(f"host {algo} fused={fused}", r, counts,
+                         lambda: repro_torch.color(g, algo=algo, fused=fused,
+                                                   trace=True))
     return launches
 
 
@@ -975,9 +1001,16 @@ def baselines_phase(g) -> None:
 DIST_RUNS = (("ipgc", True, 1), ("ipgc", False, 2), ("spec-greedy", None, 1),
              ("jpl", None, 1))
 #: rounds the kron S=4 jpl run stops at (its full depth is 815 rounds,
-#: 77 s, which the outlined phase's time needs): a partial JPL coloring
+#: 77 s, which the script's other phases need): a partial JPL coloring
 #: is final where it is set, so it is verified without completeness
-DIST_ROUND_CAP = {"jpl": 200}
+DIST_ROUND_CAP = {"jpl": 64}
+#: the packed exchanges each boundary run of the distributed Pipe takes,
+#: held against the dense-exchange run of the same coloring
+BOUNDARY_EXCHANGES = ("boundary", "auto")
+#: iterations of a boundary run replayed under the sync check on kron
+#: (its full depth is ~300 iterations, 9 s at S=4); europe's runs are
+#: replayed whole
+BOUNDARY_REPLAY_ITERS = 40
 
 
 def dist_kernels(algo: str, fused) -> tuple:
@@ -1026,14 +1059,85 @@ def replay_dist_sync_free(ig, alg, mesh, window: int, fused, new_of_old,
     return final, it, "".join(trace)
 
 
+def dist_entry(sess, mesh, alg, fused: bool, exchange: str):
+    """The session's cached distributed build of ``alg`` on ``mesh``:
+    ``(ig, window, steps, binfo)``, the steps a run just used."""
+    for key, entry in sess.cache.items():
+        if (key[0] == "dist" and key[2] == mesh and key[5] == fused
+                and key[7] == alg and key[-1] == exchange):
+            return entry
+    raise AssertionError(f"no cached dist build of {alg.name} {exchange}")
+
+
+def replay_boundary_sync_free(entry, alg, mesh, run, relabel, n_orig: int,
+                              limit: int) -> tuple[int, bool]:
+    """The distributed Pipe with a packed exchange over the steps ``run``
+    used (``entry``: the session's build), with CUDA's sync debug mode at
+    "error" around every step; only the iteration's one read (the count
+    and the exchange stats together) runs outside it. Up to ``limit``
+    iterations, whose counts, mode trace and exchange trace must be the
+    run's; a replay that reaches the end must give the run's colors.
+    Returns the iterations replayed and whether the replay was whole."""
+    ig, _, (dense, sparse), binfo = entry
+    n, s_count = ig.n_nodes, len(mesh)
+    block = n // s_count
+    pol = make_policy("hybrid")
+    caps = bucket_capacities(block, ratio=2)
+    bcaps = list(binfo.capacities)
+    epi = dense.exchanges_per_iter
+    colors, aux, wl = dist.shard_state(mesh, *alg.init_state(ig))
+    colors = dist.shard_views(colors)
+    torch.cuda.synchronize()
+    count, it, prev_mx = n, 0, block
+    trace, xtrace, counts = [], [], []
+    while count > 0 and it < limit:
+        use_dense = bool(pol(count, n))
+        counts.append(count)
+        if use_dense:
+            step = dense
+            bcap = pick_bucket(bcaps, min(block, max(8, 2 * prev_mx)))
+        else:
+            cap = pick_bucket(caps, min(count, block))
+            if wl.capacity > cap:
+                wl = dist.resize_worklist(wl, cap, n)
+            step = sparse
+            bcap = pick_bucket(bcaps, min(cap, block, max(8, 2 * prev_mx)))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            colors, aux, wl, xs = step(colors, aux, wl, bcap=bcap)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        count, npk, prev_mx = torch.cat([wl.count.view(1), xs]).tolist()
+        trace.append("D" if use_dense else "S")
+        xtrace.append("b" if npk == epi else ("d" if npk == 0 else "m"))
+        it += 1
+    same = (counts == run.counts[:it] and "".join(trace) == run.mode_trace[:it]
+            and "".join(xtrace) == run.exchange_trace[:it])
+    whole = count == 0
+    if whole:
+        full = dist.views_to_colors(colors, s_count, n)
+        final, _ = alg.finalize(full[relabel[:n_orig]])
+        same = same and it == run.iterations and np.array_equal(final,
+                                                                 run.colors)
+    if not same:
+        raise AssertionError(f"dist {alg.name} {run.exchange_trace[:8]}...: "
+                             "the sync-checked boundary replay differs from "
+                             "the run")
+    return it, whole
+
+
 def dist_phase(g, devices, runs, record: bool = False,
-               reps: int = 10) -> tuple[list[dict], dict]:
+               reps: int = 10, boundary=(),
+               traced: bool = False) -> tuple[list[dict], dict]:
     """The distributed Pipe on ``g`` for each of ``runs``: over
     ``devices`` through ``color_distributed``, or (None) through
     ``color(mode="dist-hybrid")`` with one shard per visible card. Every
     run is verified, counted and replayed with the sync check. With
     ``record`` the ipgc fused run records the sparse steps' ``fused_step``
-    calls and times the kernel at its most-used capacity bucket. Returns
+    calls and times the kernel at its most-used capacity bucket. Each run
+    in ``boundary`` is followed by its boundary and auto exchanges
+    (``boundary_phase``; with ``traced``, a traced auto run of ipgc
+    fused too). Returns
     the kernel launches of each run, and the prepared partitioned graph,
     the mesh, the window and that sparse entry for the ``fused_step``
     row."""
@@ -1056,13 +1160,8 @@ def dist_phase(g, devices, runs, record: bool = False,
                 ipgc.LAUNCH_COUNTS.scope() as passes, \
                 dist.EXCHANGE_COUNTS.scope() as exchanges:
             t0 = time.perf_counter()
-            if devices is None:
-                r = repro_torch.color(g, mode="dist-hybrid", algo=algo,
-                                      fused=fused)
-            else:
-                r = repro_torch.color_distributed(g, devices=devices,
-                                                  algo=algo, fused=fused,
-                                                  max_iter=max_iter)
+            r = run_dist(g, devices, algo=algo, fused=fused,
+                         max_iter=max_iter)
             wall = time.perf_counter() - t0
             pass_counts = passes.as_dict()
             n_exchanges = exchanges["color_psum"]
@@ -1095,18 +1194,144 @@ def dist_phase(g, devices, runs, record: bool = False,
             exchange_bytes=sum(r.exchange_bytes), kernel_launches=counts,
             logical_passes=pass_counts, verify=stats, invariants=True,
             peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
-        window = adaptive_window(g2) if alg.uses_window else 128
-        colors, iters, trace = replay_dist_sync_free(
-            replay_ig, alg, mesh, window, fused, relabel, g.n_nodes,
-            max_iter)
-        if not (np.array_equal(colors, r.colors) and iters == r.iterations
-                and trace == r.mode_trace):
-            raise AssertionError(f"{what}: the sync-checked replay differs "
-                                 "from the run")
-        log(phase="dist.sync_free_replay", graph=g.name, shards=len(mesh),
-            algo=algo, fused=fused, iterations=iters, identical=True)
+        if algo != "spec-greedy":      # its steps are ipgc fused's
+            window = adaptive_window(g2) if alg.uses_window else 128
+            colors, iters, trace = replay_dist_sync_free(
+                replay_ig, alg, mesh, window, fused, relabel, g.n_nodes,
+                max_iter)
+            if not (np.array_equal(colors, r.colors)
+                    and iters == r.iterations and trace == r.mode_trace):
+                raise AssertionError(f"{what}: the sync-checked replay "
+                                     "differs from the run")
+            log(phase="dist.sync_free_replay", graph=g.name,
+                shards=len(mesh), algo=algo, fused=fused, iterations=iters,
+                identical=True)
+        if (algo, fused, per_iter) in boundary:
+            launches += boundary_phase(
+                g, devices, mesh, relabel, algo, fused, per_iter, r,
+                max_iter, traced and (algo, fused) == ("ipgc", True))
+        # free this coloring's prepared graphs (one per exchange) before
+        # the next: europe's are 1.6 GB of ELL each
+        for key in [k for k in sess.cache if k[0] == "dist" and k[7] == alg]:
+            del sess.cache[key]
+        torch.cuda.empty_cache()
     return launches, dict(ig=replay_ig, mesh=mesh, window=adaptive_window(g2),
                           sparse=sparse)
+
+
+def run_dist(g, devices, **kw):
+    """One distributed run: over ``devices`` through
+    ``color_distributed``, or (None) through ``color(mode="dist-hybrid")``
+    with one shard per visible card; ``trace`` goes through ``color``."""
+    if devices is None or kw.get("trace"):
+        return repro_torch.color(g, mode="dist-hybrid", devices=devices, **kw)
+    return repro_torch.color_distributed(g, devices=devices, **kw)
+
+
+def boundary_phase(g, devices, mesh, relabel, algo: str, fused, per_iter: int,
+                   dense, max_iter: int, traced: bool) -> list[dict]:
+    """The boundary and auto exchanges of one coloring: each run equal to
+    the dense-exchange run ``dense`` in colors, iterations and mode trace,
+    every publish counted once as ``boundary_pack`` and once as
+    ``dense_swap`` (both paths computed, one selected on the device), the
+    kernels of the coloring and ``compact`` launched, the ledger's bytes
+    logged against the dense run's, and the run replayed under the sync
+    check (its first ``BOUNDARY_REPLAY_ITERS`` iterations where it is
+    longer). With ``traced``, the auto run is repeated traced: equal to
+    the untraced run, with the same kernel launches. Returns the launches
+    of each run."""
+    alg = get_algorithm(algo)
+    sess = default_session()
+    launches = []
+    what = f"{g.name} dist S={len(mesh)} {algo} fused={fused}"
+    for exchange in BOUNDARY_EXCHANGES:
+        start_counts()
+        with dist.EXCHANGE_COUNTS.scope() as ec:
+            t0 = time.perf_counter()
+            r = run_dist(g, devices, algo=algo, fused=fused,
+                         max_iter=max_iter, exchange=exchange)
+            wall = time.perf_counter() - t0
+            exchanges = ec.as_dict()
+        counts = _build.KERNEL_LAUNCHES.as_dict()
+        need = dist_kernels(algo, fused)
+        missing = [k for k in need if counts[k] == 0]
+        publishes = per_iter * r.iterations
+        if missing:
+            raise AssertionError(f"{what} {exchange}: kernels {missing} "
+                                 "never launched")
+        if exchanges != {"color_psum": 0, "boundary_pack": publishes,
+                         "dense_swap": publishes}:
+            raise AssertionError(f"{what} {exchange}: exchanges "
+                                 f"{exchanges} in {r.iterations} iterations")
+        if not (np.array_equal(r.colors, dense.colors)
+                and (r.n_colors, r.iterations, r.mode_trace, r.counts)
+                == (dense.n_colors, dense.iterations, dense.mode_trace,
+                    dense.counts)):
+            raise AssertionError(f"{what} {exchange}: differs from the dense "
+                                 "exchange")
+        launches.append(counts)
+        x = r.exchange_trace
+        log(phase="dist.boundary", graph=g.name, shards=len(mesh), algo=algo,
+            fused=fused, exchange=exchange, iterations=r.iterations,
+            n_colors=r.n_colors, identical_to_dense=True,
+            exchange_trace={m: x.count(m) for m in "bdm"},
+            ledger_bytes=sum(r.exchange_bytes),
+            dense_ledger_bytes=sum(dense.exchange_bytes),
+            color_seconds=r.total_seconds,
+            dense_color_seconds=dense.total_seconds, call_seconds=wall,
+            exchanges=exchanges, kernel_launches=counts,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+        resolved = alg.resolve_fused(fused, default=True)
+        iters, whole = replay_boundary_sync_free(
+            dist_entry(sess, mesh, alg, resolved, exchange), alg, mesh, r,
+            relabel, g.n_nodes, BOUNDARY_REPLAY_ITERS
+            if r.iterations > 4 * BOUNDARY_REPLAY_ITERS else r.iterations)
+        log(phase="dist.boundary.sync_free_replay", graph=g.name,
+            shards=len(mesh), algo=algo, fused=fused, exchange=exchange,
+            iterations=iters, whole=whole, identical=True)
+        if traced and exchange == "auto":
+            traced_check(f"dist S={len(mesh)} auto {algo} fused={fused}", r,
+                         counts, lambda: run_dist(
+                             g, devices, algo=algo, fused=fused,
+                             max_iter=max_iter, exchange=exchange,
+                             trace=True))
+    return launches
+
+
+def traced_check(what: str, plain, plain_counts: dict, traced_run,
+                 replayed: "dict | None" = None) -> None:
+    """Run ``traced_run()`` (a traced run: a ``RunReport``) with the kernel
+    launch counts zeroed: it must equal the untraced run ``plain`` and
+    launch what it launched (``plain_counts``; with ``replayed``, the
+    replayed launches of an outlined run too). Logs both runs' seconds."""
+    start_counts()
+    with chunk_mod.REPLAYED_LAUNCHES.scope() as rl:
+        rep = traced_run()
+        got_replayed = rl.as_dict()
+    counts = _build.KERNEL_LAUNCHES.as_dict()
+    if not (np.array_equal(rep.colors, plain.colors)
+            and (rep.n_colors, rep.iterations, rep.mode_trace, rep.counts)
+            == (plain.n_colors, plain.iterations, plain.mode_trace,
+                plain.counts)):
+        raise AssertionError(f"traced {what}: differs from the untraced run")
+    if counts != plain_counts or (replayed is not None
+                                  and got_replayed != replayed):
+        raise AssertionError(f"traced {what}: launched {counts} "
+                             f"{got_replayed}, untraced {plain_counts} "
+                             f"{replayed}")
+    spans = {name: len(rep.trace.find(name)) for name in (
+        "session.prepare", "session.iter", "session.chunk", "obs.profile")}
+    log(phase="traced", what=what, regime=rep.regime,
+        iterations=rep.iterations, host_dispatches=rep.host_dispatches,
+        traced_seconds=rep.total_seconds, untraced_seconds=plain.total_seconds,
+        traced_over_untraced=rep.total_seconds / plain.total_seconds,
+        profile_seconds=rep.trace.find("obs.profile")[0].seconds,
+        same_launches=True, spans=spans,
+        launches_per_iter=rep.launches["per_iter"],
+        exchanges=None if rep.exchanges is None else {
+            k: rep.exchanges[k] for k in ("per_iter", "total",
+                                          "total_bytes")},
+        timing=rep.timing)
 
 
 def fused_step_row(ig, mesh, window: int, sparse: "dict | None",
@@ -1165,10 +1390,11 @@ def replay_sync_checked(g, algo: str) -> int:
     return replays
 
 
-def outlined_phase(g, host: dict) -> dict:
+def outlined_phase(g, host: dict, traced: bool = False) -> dict:
     """The outlined regime on ``g`` for every coloring, cold and warm, each
     run equal to its host loop ``host[(algo, fused)]``; returns the warm
-    seconds and the replayed launches per coloring."""
+    seconds and the replayed launches per coloring. With ``traced``, the
+    ipgc two-phase warm run is repeated traced (``traced_check``)."""
     caps = bucket_capacities(g.n_nodes, ratio=2)
     out = {}
     for algo, fused, need in COLORINGS:
@@ -1220,6 +1446,11 @@ def outlined_phase(g, host: dict) -> dict:
                 wrapper_launches={k: v for k, v in wrapper.items() if v},
                 verify=stats, identical_to_host_loop=True,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+        if traced and (algo, fused) == ("ipgc", False):
+            traced_check(f"outlined warm {algo} fused={fused}", r, wrapper,
+                         lambda: repro_torch.color(g, algo=algo, fused=fused,
+                                                   outline=True, trace=True),
+                         replayed=replayed)
         n_trips = replay_sync_checked(g, algo)
         log(phase="outlined.sync_checked_replay", graph=g.name, algo=algo,
             fused=fused, graphs_replayed=n_trips, clean=True)
@@ -1405,6 +1636,32 @@ def card_vs_cpu_phase() -> None:
             log(phase="card_vs_cpu.dist", graph=g.name, shards=s_count,
                 algo=algo, fused=fused, iterations=a.iterations,
                 n_colors=a.n_colors, identical_cpu_and_host_engine=True)
+    # the auto exchange of ipgc two-phase at 4 shards (its trace holds
+    # packed, dense-swap and mixed iterations): card = CPU in every field
+    # but the times (the exchange trace and bytes included), = the dense
+    # exchange
+    for algo, fused, _ in DIST_RUNS[1:2]:
+        dense = repro_torch.color_distributed(
+            g, devices=[card] * KRON_SHARDS, algo=algo, fused=fused)
+        for exchange in BOUNDARY_EXCHANGES[1:]:
+            a, b = (repro_torch.color_distributed(
+                g, devices=[d] * KRON_SHARDS, algo=algo, fused=fused,
+                exchange=exchange) for d in (card, "cpu"))
+            if not (np.array_equal(a.colors, b.colors)
+                    and all(getattr(a, f) == getattr(b, f) for f in fields)
+                    and np.array_equal(a.colors, dense.colors)
+                    and (a.iterations, a.mode_trace)
+                    == (dense.iterations, dense.mode_trace)):
+                raise AssertionError(
+                    f"dist {algo} fused={fused} {exchange}: the card, the "
+                    "CPU and the dense exchange differ")
+            log(phase="card_vs_cpu.dist_boundary", graph=g.name,
+                shards=KRON_SHARDS, algo=algo, fused=fused,
+                exchange=exchange, iterations=a.iterations,
+                exchange_trace=a.exchange_trace,
+                ledger_bytes=sum(a.exchange_bytes),
+                dense_ledger_bytes=sum(dense.exchange_bytes),
+                identical_cpu_and_dense=True)
 
 
 # --- phase 7 -------------------------------------------------------------------
@@ -1945,14 +2202,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     kron_host: dict = {}
-    runs = path_phase(kron, kron_s, rows, results=kron_host) + bfs_phase(kron)
+    runs = path_phase(kron, kron_s, rows, results=kron_host,
+                      traced=True) + bfs_phase(kron)
     baselines_phase(kron)
-    outlined = {kron.name: outlined_phase(kron, kron_host)}
+    outlined = {kron.name: outlined_phase(kron, kron_host, traced=True)}
     profile_phase(kron)
     default_session().cache.clear()
     torch.cuda.empty_cache()
     dist_runs, ctx = dist_phase(kron, [dev] * KRON_SHARDS, DIST_RUNS,
-                                record=True)
+                                record=True, boundary=DIST_RUNS[:2],
+                                traced=True)
     runs += dist_runs
     rows["fused_step"] = fused_step_row(**ctx)
     del ctx
@@ -1964,7 +2223,7 @@ def main() -> int:
     outlined[road.name] = outlined_phase(road, road_host)
     default_session().cache.clear()
     torch.cuda.empty_cache()
-    runs += dist_phase(road, None, DIST_RUNS[:1])[0]
+    runs += dist_phase(road, None, DIST_RUNS, boundary=DIST_RUNS)[0]
     default_session().cache.clear()
     torch.cuda.empty_cache()
     totals = {k: sum(c[k] for c in runs) for k in _build.SOURCES}

@@ -89,10 +89,14 @@ class Algorithm:
         return default if fused is None else fused
 
     def make_dist_steps(self, ig: ipgc.IPGCGraph, mesh, *, window: int,
-                        fused: bool, exchange: str = "dense"):
+                        fused: bool, exchange: str = "dense", boundary=None,
+                        thresh: "int | None" = None):
         """(dense, sparse) distributed steps over ``mesh`` (a tuple of
         devices, one per shard) on the prepared, partitioned graph ``ig``;
-        only called when ``shard_safe``."""
+        only called when ``shard_safe``. ``exchange``/``boundary``/
+        ``thresh`` select the cross-shard color publication (DESIGN.md
+        §13): with ``exchange != "dense"`` the steps take per-shard color
+        views and a ``bcap`` keyword and return an extra ``xstats``."""
         raise NotImplementedError(
             f"algorithm {self.name!r} is not shard-safe: "
             f"{self.shard_unsafe_reason or 'no distributed steps'}")

@@ -22,10 +22,11 @@ class IPGC(Algorithm):
         return ipgc.step_fns(fused)
 
     def make_dist_steps(self, ig, mesh, *, window: int, fused: bool,
-                        exchange: str = "dense"):
+                        exchange: str = "dense", boundary=None,
+                        thresh: "int | None" = None):
         from repro_torch.core.distributed import (make_dist_dense_step,
                                                   make_dist_sparse_step)
-        return (make_dist_dense_step(ig, mesh, window=window, fused=fused,
-                                     exchange=exchange),
-                make_dist_sparse_step(ig, mesh, window=window, fused=fused,
-                                      exchange=exchange))
+        kw = dict(window=window, fused=fused, exchange=exchange,
+                  boundary=boundary, thresh=thresh)
+        return (make_dist_dense_step(ig, mesh, **kw),
+                make_dist_sparse_step(ig, mesh, **kw))

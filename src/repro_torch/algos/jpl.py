@@ -1,6 +1,6 @@
 """``jpl`` — Luby-style random-priority independent-set coloring as a
 worklist algorithm (Jones–Plassmann–Luby; the port of
-``repro/algos/jpl.py``, host regime).
+``repro/algos/jpl.py``).
 
 Each round r draws a fresh random priority per *active* node (a uint32
 mixer of (node id, r)); nodes beating every active neighbour take color
@@ -202,7 +202,7 @@ def jpl_sparse_step(ig: ipgc.IPGCGraph, colors: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# distributed JPL rounds (dense exchange)
+# distributed JPL rounds
 # ---------------------------------------------------------------------------
 #
 # Shard-safety rests on two facts (DESIGN.md §§7+13):
@@ -215,19 +215,25 @@ def jpl_sparse_step(ig: ipgc.IPGCGraph, colors: torch.Tensor,
 #     the host step's ``pr_ext[nbr]`` (the sentinel slot N holds PAD_COLOR,
 #     so pad lanes read -1).
 # A round is single-phase, so each distributed round makes exactly ONE
-# color exchange, and the round counter stays a replicated scalar.
+# color exchange (the additive one, or a packed boundary publish), and the
+# round counter stays a replicated scalar.
 
 
 def make_jpl_dist_steps(ig: ipgc.IPGCGraph, mesh, *,
-                        exchange: str = "dense"):
+                        exchange: str = "dense", boundary=None,
+                        thresh: "int | None" = None):
     """(dense_round, sparse_round) over the mesh, equal to
     ``jpl_dense_step``/``jpl_sparse_step`` on the partitioned graph; the
-    state is ``core.distributed.shard_state``'s."""
+    state is ``core.distributed.shard_state``'s. ``exchange``,
+    ``boundary`` and ``thresh`` as in
+    ``core.distributed.make_dist_dense_step``: with the boundary exchange
+    the colors are per-shard views and a round takes ``bcap`` and returns
+    ``xstats`` too."""
     from repro_torch.core import distributed as dist
 
-    dist.check_exchange(exchange)
     shards = dist.shard_graph(ig, mesh)
     n, nh = ig.n_nodes, ig.n_hub
+    publisher = dist._Publisher(mesh, shards, n, exchange, boundary, thresh)
 
     def nbr_extrema(sig, colors, rnd, ell_rows, slot, valid=None):
         nc = colors[ell_rows]
@@ -253,8 +259,7 @@ def make_jpl_dist_steps(ig: ipgc.IPGCGraph, mesh, *,
         nbr_max, nbr_min = nbr_extrema(sh.ig, colors, rnd, sh.ig.ell_idx,
                                        sh.ig.hub_slot)
         new_c, newly = _decide(pend, pr, nbr_max, nbr_min, rnd, cu)
-        delta = dist._padded(sh, new_c - cu, n + 1)
-        return delta, mask_l & ~newly
+        return dist._Writes(None, cu, new_c), mask_l & ~newly
 
     def sparse_local(sh, colors, rnd, items_l):
         r = dist._sparse_rows(sh, colors, items_l)
@@ -263,16 +268,14 @@ def make_jpl_dist_steps(ig: ipgc.IPGCGraph, mesh, *,
         nbr_max, nbr_min = nbr_extrema(sh.ig, colors, rnd, r.ell_rows,
                                        r.slot, r.valid)
         new_c, newly = _decide(pend, pr, nbr_max, nbr_min, rnd, r.cu)
-        delta = ipgc._set_rows(
-            torch.zeros(n + 1, dtype=torch.int32, device=sh.device), r.ids,
-            torch.where(r.valid, new_c - r.cu, 0))
-        return delta, r, pend & ~newly
+        writes = dist._Writes(r.ids, r.cu, torch.where(r.valid, new_c, r.cu))
+        return writes, r, pend & ~newly
 
-    def dense_round(colors, rnd, wl):
-        deltas, still = zip(*(
+    def dense_round(colors, rnd, wl, pub):
+        writes, still = zip(*(
             dense_local(sh, c, rd, b.mask)
             for sh, c, rd, b in zip(shards, colors, rnd, wl.blocks)))
-        colors_out = dist._exchange_colors(mesh, colors, deltas)
+        colors_out = pub(colors, writes)
         blocks = []
         for sh, st in zip(shards, still):
             items, count = compact_items(sh.row_ids, st, n)
@@ -280,11 +283,11 @@ def make_jpl_dist_steps(ig: ipgc.IPGCGraph, mesh, *,
         return (colors_out, tuple(rd + 1 for rd in rnd),
                 dist._worklist(mesh, blocks))
 
-    def sparse_round(colors, rnd, wl):
-        deltas, rows, still = zip(*(
+    def sparse_round(colors, rnd, wl, pub):
+        writes, rows, still = zip(*(
             sparse_local(sh, c, rd, b.items)
             for sh, c, rd, b in zip(shards, colors, rnd, wl.blocks)))
-        colors_out = dist._exchange_colors(mesh, colors, deltas)
+        colors_out = pub(colors, writes)
         blocks = []
         for sh, b, r, st in zip(shards, wl.blocks, rows, still):
             items, count = compact_items(b.items, st, n)
@@ -294,9 +297,8 @@ def make_jpl_dist_steps(ig: ipgc.IPGCGraph, mesh, *,
         return (colors_out, tuple(rd + 1 for rd in rnd),
                 dist._worklist(mesh, blocks))
 
-    dense_round.exchanges_per_iter = 1      # a JPL round is single-phase
-    sparse_round.exchanges_per_iter = 1
-    return dense_round, sparse_round
+    # a JPL round is single-phase: one exchange
+    return publisher.bind(dense_round, 1), publisher.bind(sparse_round, 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -328,10 +330,12 @@ class JPL(Algorithm):
         return False                      # single step family
 
     def make_dist_steps(self, ig, mesh, *, window: int, fused: bool,
-                        exchange: str = "dense"):
+                        exchange: str = "dense", boundary=None,
+                        thresh: "int | None" = None):
         # window and fused are protocol arguments JPL ignores (no mex
         # window, one step family), as in the host steps
-        return make_jpl_dist_steps(ig, mesh, exchange=exchange)
+        return make_jpl_dist_steps(ig, mesh, exchange=exchange,
+                                   boundary=boundary, thresh=thresh)
 
     def finalize(self, colors):
         return _compact_palette(colors)

@@ -37,13 +37,14 @@ class SpecGreedy(Algorithm):
         return True                       # deferred repair IS the algorithm
 
     def make_dist_steps(self, ig, mesh, *, window: int, fused: bool,
-                        exchange: str = "dense"):
+                        exchange: str = "dense", boundary=None,
+                        thresh: "int | None" = None):
         from repro_torch.core.distributed import (make_dist_dense_step,
                                                   make_dist_sparse_step)
-        return (make_dist_dense_step(ig, mesh, window=window, fused=True,
-                                     exchange=exchange),
-                make_dist_sparse_step(ig, mesh, window=window, fused=True,
-                                      exchange=exchange))
+        kw = dict(window=window, fused=True, exchange=exchange,
+                  boundary=boundary, thresh=thresh)
+        return (make_dist_dense_step(ig, mesh, **kw),
+                make_dist_sparse_step(ig, mesh, **kw))
 
     def finalize(self, colors):
         return _compact_palette(colors)

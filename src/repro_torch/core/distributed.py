@@ -1,5 +1,5 @@
 """Distributed hybrid coloring engine (the port of
-``repro/core/distributed.py``, dense exchange).
+``repro/core/distributed.py``).
 
 Owner-computes partitioning of the paper's Pipe, both phases, so the
 persistent-worklist invariant (DESIGN.md §1) holds across shard
@@ -36,38 +36,47 @@ exact in any order.
 The fused steps equal ``ipgc.fused_*_step`` on the partitioned graph, so
 ``color_distributed`` reproduces ``engine.color(g2, fused=True)``'s
 colors, iterations and mode trace for fixed-H policies on any shard
-count (DESIGN.md §6). Only ``exchange="dense"`` is ported: the packed
-boundary publish of the reference (DESIGN.md §13) raises.
+count (DESIGN.md §6).
+
+``exchange="boundary"|"auto"`` (DESIGN.md §13) replaces the additive
+exchange with a packed publish of only the *changed boundary* vertices
+(``_publish_packed``). The color state becomes one view per shard
+(``shard_views``: correct at owned and ghost ids, possibly stale
+elsewhere, never shared between shards), and each publish picks on the
+device between the packed buffers and a dense swap of the owner blocks,
+so correctness never depends on the buffer capacity and the host reads
+nothing to decide. Every combination equals the dense exchange.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core import ipgc
 from repro_torch.core.worklist import Worklist, compact_items, resize_block
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.obs.metrics import CounterGroup
 
 NO_COLOR = ipgc.NO_COLOR
 
 #: color-vector exchanges, counted when one runs (one per collective,
-#: whatever the shard count): ``color_psum`` is the additive all-gather
-EXCHANGE_COUNTS = CounterGroup("dist.exchanges", ("color_psum",))
+#: whatever the shard count): ``color_psum`` is the additive all-gather of
+#: the dense exchange; a packed publish of the boundary exchange counts
+#: ``boundary_pack`` AND ``dense_swap``, since it computes both and selects
+#: one on the device (the reference's trace-time count of both branches)
+EXCHANGE_COUNTS = CounterGroup("dist.exchanges",
+                               ("color_psum", "boundary_pack", "dense_swap"))
 
 EXCHANGES = ("dense", "boundary", "auto")
-BOUNDARY_NOT_PORTED = ("the packed boundary exchange of the distributed "
-                       "Pipe (exchange='boundary' or 'auto') is not ported "
-                       "yet (ROADMAP Queue A item 12); use exchange='dense'")
 
 
 def check_exchange(exchange: str) -> None:
     if exchange not in EXCHANGES:
         raise ValueError(f"unknown exchange {exchange!r}; valid: "
                          f"{EXCHANGES}")
-    if exchange != "dense":
-        raise NotImplementedError(BOUNDARY_NOT_PORTED)
 
 
 # ---------------------------------------------------------------------------
@@ -196,6 +205,26 @@ def shard_state(mesh, colors: torch.Tensor, aux: torch.Tensor,
     return colors_r, aux_r, _worklist(mesh, blocks)
 
 
+def shard_views(colors) -> tuple:
+    """The per-shard color views of the boundary exchange: one
+    ``int32[N+1]`` tensor per shard, also where shards share a device
+    (``shard_state`` hands them one replica)."""
+    return tuple(c.clone() for c in colors)
+
+
+def views_to_colors(views, n_shards: int, n: int) -> np.ndarray:
+    """The true int32[n] color vector of per-shard views (a sequence of S
+    ``int32[n+1]`` tensors or arrays): the views agree only at owned and
+    ghost ids, so it is each shard's OWN block of its OWN view."""
+    block = n // n_shards
+    out = []
+    for s in range(n_shards):
+        v = views[s][s * block:(s + 1) * block]
+        out.append(v.cpu().numpy() if isinstance(v, torch.Tensor)
+                   else np.asarray(v))
+    return np.concatenate(out)
+
+
 def resize_worklist(wl: ShardedWorklist, capacity: int,
                     n_nodes: int) -> ShardedWorklist:
     """Shard-local bucket change: every shard slices (or pads) its own
@@ -237,6 +266,146 @@ def _exchange_colors(mesh, colors, deltas) -> tuple:
             done[key] = c + t
         out.append(done[key])
     return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Writes:
+    """One shard's color writes of a publish: ``vals`` replace ``old`` at
+    the global ``ids`` (None: the shard's owned rows, in order; a pad lane
+    carries id N and ``vals == old``)."""
+
+    ids: "torch.Tensor | None"
+    old: torch.Tensor
+    vals: torch.Tensor
+
+
+def _delta(sh: "Shard", w: _Writes, n: int) -> torch.Tensor:
+    """The additive exchange's int32[N+1] delta of one shard's writes."""
+    d = w.vals - w.old
+    if w.ids is None:
+        return _padded(sh, d, n + 1)
+    return ipgc._set_rows(
+        torch.zeros(n + 1, dtype=torch.int32, device=sh.device), w.ids, d)
+
+
+def _all_gather(mesh, parts) -> tuple:
+    """The concatenation of the shards' tensors on every shard's device
+    (computed once per distinct device)."""
+    return _per_device(mesh, lambda d: torch.cat([p.to(d) for p in parts]))
+
+
+def _publish_packed(mesh, shards, views, writes, isb, *, n: int, bcap: int,
+                    thresh: int):
+    """Publish the shards' owned color writes into their color views
+    (``repro/core/distributed.py::_publish_packed``).
+
+    Own writes always land locally (pad ids are dropped, so slot ``n``,
+    the ``PAD_COLOR`` sentinel, is never written). Cross-shard publication
+    then picks ON THE DEVICE between:
+      * packed: every shard's *changed boundary* ``(id, color)`` pairs,
+        ordered-compacted (the ``compact`` kernel) into ``int32[bcap]``
+        buffers padded with id ``n+1``, concatenated over the shards and
+        scattered into every view (pad ids dropped);
+      * dense swap: every view takes the concatenation of each shard's
+        owned block of its own view — the fallback when some shard's
+        changed-boundary count overflows ``bcap`` or the total exceeds
+        ``thresh``.
+    The predicate is computed from all the shards' counts on every
+    device, so every shard takes the same path. Both are computed and one
+    is selected by ``torch.where``: no host read decides anything.
+
+    ``isb`` holds per shard its ``is_boundary`` block and the whole
+    ``bool[n+1]`` vector (slot ``n`` False) on its device. Returns
+    ``(views', packed, biggest)``: ``packed`` a 0-d bool, ``biggest`` the
+    largest per-shard changed-boundary count (0-d int32), both on the
+    mesh's first device.
+    """
+    EXCHANGE_COUNTS["boundary_pack"] += 1
+    EXCHANGE_COUNTS["dense_swap"] += 1
+    own_views, owned, cbs, pids, pvals = [], [], [], [], []
+    for sh, v, w, (isb_blk, isb_full) in zip(shards, views, writes, isb):
+        if w.ids is None:
+            ids, flags = sh.row_ids, isb_blk
+            v = torch.cat([v[:sh.lo], w.vals, v[sh.hi:]])
+        else:
+            ids, flags = w.ids, isb_full[w.ids]       # pad id n: False
+            v = ipgc._set_rows_drop(v, torch.where(ids < n, ids, n + 1),
+                                    w.vals)
+        changed = flags & (w.vals != w.old)
+        m = ids.shape[0]
+        pos, _ = ops.compact(changed, bcap, m)
+        pids.append(torch.cat([ids, ids.new_full((1,), n + 1)])[pos])
+        pvals.append(torch.cat([w.vals, w.vals.new_zeros(1)])[pos])
+        cbs.append(changed.sum(dtype=torch.int32).view(1))
+        own_views.append(v)
+        owned.append(v[sh.lo:sh.hi])
+
+    def gate(d):
+        c = torch.cat([x.to(d) for x in cbs])
+        return (c.max() <= bcap) & (c.sum() <= thresh), c.max()
+
+    use, biggest = zip(*_per_device(mesh, gate))
+    all_ids, all_vals = _all_gather(mesh, pids), _all_gather(mesh, pvals)
+    swap = _all_gather(mesh, owned)
+    out = []
+    for v, u, ai, av, sw in zip(own_views, use, all_ids, all_vals, swap):
+        packed = ipgc._set_rows_drop(v, torch.where(u, ai, n + 1), av)
+        out.append(torch.cat([torch.where(u, packed[:n], sw), v[n:]]))
+    return tuple(out), use[0], biggest[0]
+
+
+class _Publisher:
+    """The cross-shard publish of a step's color writes: the additive
+    exchange (``exchange="dense"``), or the packed publish into per-shard
+    views. ``bind`` makes the step of a local program ``run(colors, aux,
+    wl, pub)``, which calls ``pub(colors, writes)`` once per exchange: the
+    dense step is ``step(colors, aux, wl) -> (colors, aux, wl)``, the
+    boundary step ``step(views, aux, wl, *, bcap) -> (views, aux, wl,
+    xstats)`` with ``xstats`` the int32[2] ``[publishes that went packed,
+    largest changed-boundary count]`` on the mesh's first device."""
+
+    def __init__(self, mesh, shards, n: int, exchange: str, boundary,
+                 thresh: "int | None"):
+        check_exchange(exchange)
+        self.mesh, self.shards, self.n = mesh, shards, n
+        self.boundary = exchange != "dense"
+        if self.boundary:
+            if boundary is None or thresh is None:
+                raise ValueError(f"exchange={exchange!r} needs the "
+                                 "partition's BoundaryInfo and a threshold")
+            flags = torch.from_numpy(np.append(
+                np.asarray(boundary.is_boundary, dtype=bool), False))
+            full = _per_device(mesh, flags.to)
+            self.isb = tuple((f[sh.lo:sh.hi], f)
+                             for f, sh in zip(full, shards))
+            self.thresh = int(thresh)
+
+    def dense(self, colors, writes) -> tuple:
+        return _exchange_colors(self.mesh, colors, [
+            _delta(sh, w, self.n) for sh, w in zip(self.shards, writes)])
+
+    def bind(self, run, per_iter: int):
+        if not self.boundary:
+            def step(colors, aux, wl):
+                return run(colors, aux, wl, self.dense)
+        else:
+            def step(views, aux, wl, *, bcap: int):
+                stats = []
+
+                def pub(v, writes):
+                    v, packed, biggest = _publish_packed(
+                        self.mesh, self.shards, v, writes, self.isb,
+                        n=self.n, bcap=bcap, thresh=self.thresh)
+                    stats.append((packed, biggest))
+                    return v
+
+                out = run(views, aux, wl, pub)
+                npk = torch.stack([p for p, _ in stats]).sum(
+                    dtype=torch.int32)
+                mx = torch.stack([b for _, b in stats]).max()
+                return (*out, torch.stack([npk, mx]).to(torch.int32))
+        step.exchanges_per_iter = per_iter
+        return step
 
 
 def _worklist(mesh, blocks) -> ShardedWorklist:
@@ -283,7 +452,7 @@ def _dense_fused_local(sh: Shard, colors, base_l, active, window: int):
                         torch.where(lose, NO_COLOR, cu))
     new_base = torch.where(need & ~has, base_l + window, base_l)
     # ONE exchange publishes the speculated colors AND the uncolorings
-    return _padded(sh, new_c - cu, n + 1), new_base, need
+    return _Writes(None, cu, new_c), new_base, need
 
 
 def _dense_assign_local(sh: Shard, colors, base_l, active, window: int):
@@ -298,8 +467,7 @@ def _dense_assign_local(sh: Shard, colors, base_l, active, window: int):
     new_c, new_base, newly = ipgc._mex_rows(nc, base_l, active, cu, extra,
                                             window)
     # exchange 1 publishes the speculative colors of the owned rows
-    delta = _padded(sh, torch.where(active, new_c, cu) - cu, n + 1)
-    return delta, new_base, newly
+    return _Writes(None, cu, torch.where(active, new_c, cu)), new_base, newly
 
 
 def _dense_resolve_local(sh: Shard, colors2, active, newly):
@@ -312,12 +480,13 @@ def _dense_resolve_local(sh: Shard, colors2, active, newly):
         lose = lose | ipgc._hub_lose(ig, colors2, newly_g)[ig.hub_slot]
     c2 = colors2[sh.lo:sh.hi]
     # exchange 2 uncolors the losers (their writes were in colors2)
-    undo = _padded(sh, torch.where(lose, NO_COLOR - c2, 0), n + 1)
+    undo = _Writes(None, c2, torch.where(lose, NO_COLOR, c2))
     return undo, lose | (active & ~newly)
 
 
 def make_dist_dense_step(ig: ipgc.IPGCGraph, mesh, *, window: int = 128,
-                         fused: bool = False, exchange: str = "dense"):
+                         fused: bool = False, exchange: str = "dense",
+                         boundary=None, thresh: "int | None" = None):
     """Build the dense distributed step over the mesh.
 
     ``ig`` is the prepared, partitioned graph. Returns
@@ -329,27 +498,34 @@ def make_dist_dense_step(ig: ipgc.IPGCGraph, mesh, *, window: int = 128,
     two color exchanges per iteration); ``fused=True`` pipelines the
     resolve of the last round with this round's assign (equal to
     ``ipgc.fused_dense_step``, one exchange).
+
+    ``exchange != "dense"``: the colors are per-shard views
+    (``shard_views``) published through ``_publish_packed``, and the step
+    is ``step(views, base, wl, *, bcap) -> (views, base, wl, xstats)``
+    (see ``_Publisher``). ``boundary`` is the partition's
+    ``graphs.partition.BoundaryInfo``, ``thresh`` the changed-count
+    threshold of ``policy.exchange_threshold``.
     """
-    check_exchange(exchange)
     shards = shard_graph(ig, mesh)
     n = ig.n_nodes
+    publisher = _Publisher(mesh, shards, n, exchange, boundary, thresh)
 
-    def step(colors, base, wl: ShardedWorklist):
+    def run(colors, base, wl: ShardedWorklist, pub):
         masks = [b.mask for b in wl.blocks]
         if fused:
-            deltas, new_base, still = zip(*(
+            writes, new_base, still = zip(*(
                 _dense_fused_local(sh, c, b, m, window)
                 for sh, c, b, m in zip(shards, colors, base, masks)))
-            colors_out = _exchange_colors(mesh, colors, deltas)
+            colors_out = pub(colors, writes)
         else:
-            deltas, new_base, newly = zip(*(
+            writes, new_base, newly = zip(*(
                 _dense_assign_local(sh, c, b, m, window)
                 for sh, c, b, m in zip(shards, colors, base, masks)))
-            colors2 = _exchange_colors(mesh, colors, deltas)
+            colors2 = pub(colors, writes)
             undos, still = zip(*(
                 _dense_resolve_local(sh, c, m, nw)
                 for sh, c, m, nw in zip(shards, colors2, masks, newly)))
-            colors_out = _exchange_colors(mesh, colors2, undos)
+            colors_out = pub(colors2, undos)
         # the owned rows still active, as global ids (pad N), through the
         # compact kernel
         blocks = []
@@ -358,8 +534,7 @@ def make_dist_dense_step(ig: ipgc.IPGCGraph, mesh, *, window: int = 128,
             blocks.append(Worklist(mask=st, items=items, count=count))
         return colors_out, tuple(new_base), _worklist(mesh, blocks)
 
-    step.exchanges_per_iter = 1 if fused else 2
-    return step
+    return publisher.bind(run, 1 if fused else 2)
 
 
 # ---------------------------------------------------------------------------
@@ -436,23 +611,18 @@ def _sparse_fused_local(sh: Shard, colors, base_l, items_l, window: int):
                         torch.where(lose, NO_COLOR, r.cu))
     new_base_rows = torch.where(need & ~has, r.base_rows + window,
                                 r.base_rows)
-    # ONE exchange (pad lanes write delta 0 at the sentinel)
-    delta = ipgc._set_rows(
-        torch.zeros(n + 1, dtype=torch.int32, device=sh.device), r.ids,
-        new_c - r.cu)
-    return delta, r, new_base_rows, need
+    # ONE exchange (pad lanes write their own color back)
+    writes = _Writes(r.ids, r.cu, torch.where(r.valid, new_c, r.cu))
+    return writes, r, new_base_rows, need
 
 
 def _sparse_assign_local(sh: Shard, colors, base_l, items_l, window: int):
-    n = sh.ig.n_nodes
     r = _sparse_rows(sh, colors, items_l, base_l, window)
     nc = colors[r.ell_rows]
     new_c, new_base_rows, newly = ipgc._mex_rows(nc, r.base_rows, r.valid,
                                                  r.cu, r.extra, window)
-    delta = ipgc._set_rows(
-        torch.zeros(n + 1, dtype=torch.int32, device=sh.device), r.ids,
-        torch.where(r.valid, new_c - r.cu, 0))
-    return delta, r, new_base_rows, newly
+    writes = _Writes(r.ids, r.cu, torch.where(r.valid, new_c, r.cu))
+    return writes, r, new_base_rows, newly
 
 
 def _sparse_resolve_local(sh: Shard, colors2, items_l, r: _SparseRows,
@@ -467,9 +637,8 @@ def _sparse_resolve_local(sh: Shard, colors2, items_l, r: _SparseRows,
             torch.where(newly, items_l, n), newly)
         hub_l = ipgc._hub_lose(ig, colors2, newly_full)
         lose = lose | (hub_l[r.slot] & r.valid)
-    undo = ipgc._set_rows(
-        torch.zeros(n + 1, dtype=torch.int32, device=sh.device), r.ids,
-        torch.where(lose, NO_COLOR - colors2[r.ids], 0))
+    c2 = colors2[r.ids]
+    undo = _Writes(r.ids, c2, torch.where(lose, NO_COLOR, c2))
     return undo, lose | (r.valid & ~newly)
 
 
@@ -487,43 +656,45 @@ def _sparse_maintain(sh: Shard, block: Worklist, base_l, r: _SparseRows,
 
 
 def make_dist_sparse_step(ig: ipgc.IPGCGraph, mesh, *, window: int = 128,
-                          fused: bool = False, exchange: str = "dense"):
+                          fused: bool = False, exchange: str = "dense",
+                          boundary=None, thresh: "int | None" = None):
     """Build the data-driven distributed step over shard-local worklists.
 
     Each shard gathers only its own compacted items block (global ids it
     owns, padded with N), so per-iteration cost tracks the shard's share
     of the active set, not its block size. The color exchange is the same
-    additive all-gather as the dense step; the worklist filter and the
-    ``mask`` write-back stay O(C) and shard-local.
+    as the dense step's; the worklist filter and the ``mask`` write-back
+    stay O(C) and shard-local. ``exchange``, ``boundary`` and ``thresh``
+    as in ``make_dist_dense_step``.
     """
-    check_exchange(exchange)
     shards = shard_graph(ig, mesh)
+    publisher = _Publisher(mesh, shards, ig.n_nodes, exchange, boundary,
+                           thresh)
 
-    def step(colors, base, wl: ShardedWorklist):
+    def run(colors, base, wl: ShardedWorklist, pub):
         items = [b.items for b in wl.blocks]
         if fused:
-            deltas, rows, new_base_rows, still = zip(*(
+            writes, rows, new_base_rows, still = zip(*(
                 _sparse_fused_local(sh, c, b, it, window)
                 for sh, c, b, it in zip(shards, colors, base, items)))
-            colors_out = _exchange_colors(mesh, colors, deltas)
+            colors_out = pub(colors, writes)
         else:
-            deltas, rows, new_base_rows, newly = zip(*(
+            writes, rows, new_base_rows, newly = zip(*(
                 _sparse_assign_local(sh, c, b, it, window)
                 for sh, c, b, it in zip(shards, colors, base, items)))
-            colors2 = _exchange_colors(mesh, colors, deltas)
+            colors2 = pub(colors, writes)
             undos, still = zip(*(
                 _sparse_resolve_local(sh, c, it, r, nw)
                 for sh, c, it, r, nw in zip(shards, colors2, items, rows,
                                             newly)))
-            colors_out = _exchange_colors(mesh, colors2, undos)
+            colors_out = pub(colors2, undos)
         blocks, bases = zip(*(
             _sparse_maintain(sh, blk, b, r, nb, st)
             for sh, blk, b, r, nb, st in zip(shards, wl.blocks, base, rows,
                                              new_base_rows, still)))
         return colors_out, bases, _worklist(mesh, blocks)
 
-    step.exchanges_per_iter = 1 if fused else 2
-    return step
+    return publisher.bind(run, 1 if fused else 2)
 
 
 def color_distributed(g, *, n_shards: "int | None" = None, devices=None,
@@ -555,6 +726,11 @@ def color_distributed(g, *, n_shards: "int | None" = None, devices=None,
     (the reference's compile-cache argument): the dict becomes the backing
     store of a session of its own, so passing the same dict across calls
     reuses the partitioned graph and the steps; not with ``session``.
+    ``exchange``: the cross-shard color publication (DESIGN.md §13) —
+    ``"dense"`` (the additive exchange of int32[N+1]), ``"boundary"``
+    (packed changed-boundary buffers whenever they fit) or ``"auto"``
+    (packed only below the byte break-even threshold); all three give the
+    same coloring.
     """
     from repro_torch.exec import ExecutionSpec, Session, default_session
     spec = ExecutionSpec(

@@ -79,7 +79,8 @@ class ColoringResult:
     host_dispatches: int = 0    # iterations (host loop) or chunks
     #                             (outlined) the host dispatched
     # dist regime only (DESIGN.md §13): per-iteration exchange-path trace
-    # ('d' dense) and the bytes each iteration moved per shard
+    # ('d' dense, 'b' packed, 'm' mixed) and the bytes each iteration
+    # moved per shard
     exchange_trace: str = ""
     exchange_bytes: list = dataclasses.field(default_factory=list)
 
@@ -136,6 +137,7 @@ def color(
     n_shards: "int | None" = None,  # dist-* modes: shard count
     exchange: str = "dense",       # dist-* modes: color publication path
     devices=None,                  # dist-* modes: one device per shard
+    trace=None,                    # True / obs.Trace: return a RunReport
 ) -> ColoringResult:
     """Color ``g`` (a host ``Graph``, or an ``IPGCGraph`` prepared on
     ``device``) with the hybrid Pipe on the process-default session of
@@ -144,7 +146,11 @@ def color(
     distributed Pipe over
     ``devices`` (else ``n_shards`` shards on ``device``'s kind; see
     ``core.distributed.resolve_mesh``); with ``devices`` and no
-    ``device`` the session is that of the first shard's device."""
+    ``device`` the session is that of the first shard's device.
+    ``exchange`` is the dist Pipe's color publication (``"dense"``,
+    ``"boundary"`` or ``"auto"``, DESIGN.md §13). ``trace`` (True or an
+    ``obs.Trace``) returns a ``RunReport`` instead of the bare result
+    (``Session.run``)."""
     from repro_torch.exec import default_session, spec_for
     spec = spec_for(mode=mode, algo=algo, h=h, window=window,
                     bucket_ratio=bucket_ratio, max_iter=max_iter,
@@ -154,7 +160,7 @@ def color(
         device = list(devices)[0]
     return default_session(device).run(spec, g, policy=policy,
                                        collect_tti=collect_tti,
-                                       devices=devices)
+                                       devices=devices, trace=trace)
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +183,7 @@ def color_outlined_hybrid(
     fused: "bool | None" = None,
     layout: "str | object | None" = None,
     device=None,
+    trace=None,
 ) -> ColoringResult:
     """Outlined hybrid Pipe: at most ``len(caps) + 1`` host dispatches.
 
@@ -189,7 +196,8 @@ def color_outlined_hybrid(
     rebuilt per chunk from the dense/sparse trip counters on the device
     (exact for monotone policies). AutoTuned policies refresh their
     threshold between chunks (``observe_chunk``). ``fused=None`` resolves
-    per device type (``exec.session.OUTLINED_FUSED``).
+    per device type (``exec.session.OUTLINED_FUSED``). ``trace`` as in
+    ``color``.
     """
     from repro_torch.exec import ExecutionSpec, default_session
     spec = ExecutionSpec(
@@ -197,7 +205,7 @@ def color_outlined_hybrid(
         window=window, bucket_ratio=bucket_ratio, max_iter=max_iter,
         priority=priority, fused=fused)
     return default_session(device).run(spec, g, policy=policy,
-                                       collect_tti=collect_tti)
+                                       collect_tti=collect_tti, trace=trace)
 
 
 def color_outlined(

@@ -166,6 +166,33 @@ class Timer:
         self.seconds = time.perf_counter() - self.t0
 
 
+def measure_launches(step_impl, ig, colors, aux, wl, **step_kw) -> dict:
+    """Kernel-launch accounting for ONE step (DESIGN.md §10): the
+    ``ipgc.LAUNCH_COUNTS`` delta of one run of ``step_impl(ig, colors,
+    aux, wl, **step_kw)`` on clones of the state (the caller's tensors are
+    never touched).
+
+    The dict maps pass kind -> launches per iteration (``fused`` /
+    ``mex`` / ``conflict`` / ``compact``); a one-launch fused iteration
+    is ``{"fused": 1}`` with every other kind 0. The reference traces the
+    step abstractly; the port counts when the step runs, so the step runs
+    once, inside ``LAUNCH_COUNTS.scope()`` and
+    ``kernels._build.KERNEL_LAUNCHES.scope()``: the caller's counts of
+    both groups are restored afterwards, so a measurement never shows in
+    surrounding accounting, nor surrounding accounting in it.
+    """
+    from repro_torch.core import ipgc
+    from repro_torch.kernels._build import KERNEL_LAUNCHES
+
+    state = (colors.clone(), aux.clone(),
+             dataclasses.replace(wl, mask=wl.mask.clone(),
+                                 items=wl.items.clone(),
+                                 count=wl.count.clone()))
+    with ipgc.LAUNCH_COUNTS.scope() as lc, KERNEL_LAUNCHES.scope():
+        step_impl(ig, *state, **step_kw)
+        return lc.as_dict()
+
+
 # ---------------------------------------------------------------------------
 # chunk-size policies — the REFILL cadence of the streaming service
 # ---------------------------------------------------------------------------

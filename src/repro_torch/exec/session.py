@@ -18,7 +18,20 @@ The dist regime runs the same loop over the distributed steps
 (``core/distributed.py``) on a partitioned graph; the partition is cached
 per (graph content, shard count, balance), so every algorithm run on one
 partition builds it once, and an equal graph rebuilt per request reuses
-it.
+it. With ``exchange="boundary"|"auto"`` the colors are per-shard views,
+each iteration's packed-buffer capacity is picked from the partition's
+boundary ladder and the last iteration's changed-boundary count, and the
+iteration's one read brings back the count and the exchange stats
+together; the exchange trace (``'b'`` packed, ``'d'`` dense swap, ``'m'``
+mixed) and the byte ledger follow the reference.
+
+``Session.run(trace=)`` returns a ``RunReport`` (DESIGN.md §12): the
+host loops open ``session.prepare``, ``session.iter`` and
+``session.chunk`` spans (host clock only, no device read), and after the
+timed run the steps run once more, uncaptured, on clones of the initial
+state, to count their launches, gathers and exchanges per iteration
+(cached per configuration; the kernel launches of that run are scoped
+away).
 
 ``run_batch`` colors many graphs at once as flattened lane groups
 (``exec/batch.py``), and ``stream`` opens the continuous-batching service
@@ -36,22 +49,27 @@ import time
 import weakref
 
 import numpy as np
+import torch
 
 from repro_torch.core import distributed as dist
 from repro_torch.core import ipgc
 from repro_torch.core.engine import (ColoringResult, adaptive_window,
                                      resolve_plan)
 from repro_torch.core.policy import (AutoTuned, Policy, Timer,
-                                     device_threshold, make_policy)
+                                     device_threshold, exchange_threshold,
+                                     make_policy, measure_launches)
 from repro_torch.core.worklist import (bucket_capacities, chunk_lower_bounds,
                                        pick_bucket, resize_items)
 from repro_torch.device import resolve_device
 from repro_torch.exec.chunk import ChunkRunner
 from repro_torch.exec.spec import ExecutionSpec
 from repro_torch.graphs.csr import Graph
-from repro_torch.graphs.partition import prepare_partition
+from repro_torch.graphs.partition import boundary_info, prepare_partition
+from repro_torch.kernels._build import KERNEL_LAUNCHES
 from repro_torch.obs import trace as obs_trace
-from repro_torch.obs.report import RunReport, dense_exchange_bytes
+from repro_torch.obs.report import (RunReport, dense_exchange_bytes,
+                                    dense_swap_bytes, exchange_section,
+                                    packed_exchange_bytes, totals_from_trace)
 
 
 @dataclasses.dataclass
@@ -71,6 +89,52 @@ class CacheStats:
         return {"hits": self.hits, "misses": self.misses,
                 "evictions": self.evictions,
                 "hit_rate": round(self.hit_rate, 4)}
+
+    def reset(self) -> None:
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+
+@dataclasses.dataclass
+class _DispatchMeter:
+    """Per-run dispatch accounting, filled by the host loops when a run is
+    traced (DESIGN.md §12).
+
+    ``first - best`` is the report's *compile proxy*: the first dispatch of
+    a cold entry pays the kernels' build and load (and, outlined on a
+    card, the trips' captures), steady-state dispatches don't — a proxy,
+    exact only when steady-state dispatches are homogeneous. ``statics``
+    snapshots the loop's resolved static arguments so the work profile
+    runs exactly the steps the run used.
+    """
+
+    dispatch_seconds: float = 0.0
+    first: "float | None" = None
+    best: "float | None" = None
+    n: int = 0
+    statics: "dict | None" = None
+
+    def add(self, seconds: float) -> None:
+        self.dispatch_seconds += seconds
+        if self.first is None:
+            self.first = seconds
+        self.best = seconds if self.best is None else min(self.best, seconds)
+        self.n += 1
+
+    def timing(self, total_seconds: float) -> dict:
+        first = self.first or 0.0
+        best = self.best or 0.0
+        return {
+            "total_seconds": total_seconds,
+            "dispatch_seconds": self.dispatch_seconds,
+            "dispatches": self.n,
+            "first_dispatch_seconds": first,
+            "best_dispatch_seconds": best,
+            "compile_proxy_seconds": max(0.0, first - best),
+            "host_overhead_seconds": max(
+                0.0, total_seconds - self.dispatch_seconds),
+        }
 
 
 #: id(graph) -> its content key, dropped when the graph is collected
@@ -182,27 +246,68 @@ class Session:
             return entry
 
     def run(self, spec: ExecutionSpec, g, *, policy: "Policy | None" = None,
-            collect_tti: bool = False, devices=None) -> ColoringResult:
+            collect_tti: bool = False, devices=None, trace=None):
         """Color one graph (a host ``Graph`` or a prepared ``IPGCGraph``
         on this session's device) as ``spec`` says. ``devices`` is the
         dist regime's mesh, one device per shard (see
         ``core.distributed.resolve_mesh``; None deals ``spec.n_shards``
-        shards on this session's kind of device)."""
+        shards on this session's kind of device).
+
+        ``trace`` turns on telemetry (DESIGN.md §12): ``True`` for a fresh
+        ``obs.Trace``, or a ``Trace`` to append to (e.g. with an injected
+        clock). A traced run returns a ``RunReport``: the same
+        ``ColoringResult`` (under ``.result``, with passthrough
+        properties) plus the spans, the per-iteration launch, gather and
+        exchange profiles, the compile-vs-execute split and a cache
+        snapshot. In its timed window a traced run launches the kernels
+        an untraced run launches and reads back nothing more."""
+        if trace is None or trace is False:
+            return self._execute(spec, g, policy=policy,
+                                 collect_tti=collect_tti, devices=devices)
+        tr = obs_trace.Trace() if trace is True else trace
+        meter = _DispatchMeter()
+        stats0 = dataclasses.replace(self.stats)
+        with obs_trace.tracing(tr):
+            with tr.span("session.run", regime=spec.regime, mode=spec.mode,
+                         algo=str(spec.algo), graph=self._graph_name(g)):
+                result = self._execute(spec, g, policy=policy,
+                                       collect_tti=collect_tti,
+                                       devices=devices, meter=meter)
+                with tr.span("obs.profile"):
+                    profile = self._work_profile(meter)
+        return self._assemble_report(spec, g, result, meter, profile,
+                                     stats0, tr)
+
+    def _execute(self, spec: ExecutionSpec, g, *, policy, collect_tti,
+                 devices, meter=None) -> ColoringResult:
         if spec.regime == "dist":
             return self._run_dist(spec, g, policy=policy,
-                                  collect_tti=collect_tti, devices=devices)
+                                  collect_tti=collect_tti, devices=devices,
+                                  meter=meter)
         if spec.regime == "outlined":
             return self._run_outlined(spec, g, policy=policy,
-                                      collect_tti=collect_tti)
+                                      collect_tti=collect_tti, meter=meter)
         return self._run_host(spec, g, policy=policy,
-                              collect_tti=collect_tti)
+                              collect_tti=collect_tti, meter=meter)
+
+    @staticmethod
+    def _graph_name(g) -> str:
+        name = getattr(g, "name", None)
+        return name if name else f"<prepared n={g.n_nodes}>"
 
     def partition(self, g: Graph, n_shards: int, *, balance: bool = True):
         """``prepare_partition(g, n_shards)``, cached: ``(g2, new_of_old)``
         with ``g2`` padded to equal, degree-balanced owner blocks."""
+        return self._partition(g, n_shards, balance)[:2]
+
+    def _partition(self, g: Graph, n_shards: int, balance: bool):
+        """The partition entry ``(g2, new_of_old, memo)``; ``memo`` keeps
+        the partition's ``BoundaryInfo`` once a boundary-exchange build
+        has made it (a pass over every edge), for every algorithm and
+        exchange run on this partition."""
         key = ("partition", _content_key(g), n_shards, balance)
-        return self.cached(key, lambda: prepare_partition(
-            g, n_shards, balance=balance))
+        return self.cached(key, lambda: (*prepare_partition(
+            g, n_shards, balance=balance), {}))
 
     def run_batch(self, spec: ExecutionSpec, graphs,
                   *, map_to_original: bool = False, trace=None):
@@ -256,6 +361,105 @@ class Session:
                     "misses": self.stats.misses - stats0.misses,
                     "evictions": self.stats.evictions - stats0.evictions}}
 
+    # -- telemetry: work profile and report assembly (DESIGN.md §12) ---------
+
+    def _work_profile(self, meter: _DispatchMeter) -> dict:
+        """Per-iteration work profile of the run's steps: each step of the
+        run's family runs once, uncaptured, on clones of the initial state
+        under the scoped counter groups (``measure_launches``), after the
+        timed run. Cached under the session's key space: repeated traced
+        runs of one configuration pay a dict lookup."""
+        s = meter.statics
+        if s is None:
+            return {}
+        if s["kind"] == "dist":
+            return self._profile_dist(s)
+        alg, ig = s["alg"], s["ig"]
+        kw = dict(window=s["window"], force_hub=s["force_hub"])
+        key = ("obs-profile", "local", self.graph_key(ig), alg, s["fused"],
+               tuple(sorted(kw.items())))
+
+        def build():
+            colors, aux, wl = alg.init_state(ig)
+            out = {}
+            for mode, step in zip(("dense", "sparse"),
+                                  alg.step_fns(s["fused"])):
+                with ipgc.GATHER_COUNTS.scope() as gc:
+                    launches = measure_launches(step, ig, colors, aux, wl,
+                                                **kw)
+                    gathers = gc.as_dict()
+                out[mode] = {"launches": launches, "gathers": gathers}
+            return out
+
+        return self.cached(key, build)
+
+    def _profile_dist(self, s: dict) -> dict:
+        """Launch, gather and exchange profile of the distributed steps:
+        each runs once on the initial sharded state. Launches and gathers
+        count once per shard when they run, so they are divided by the
+        shard count (the reference counts one shard's program); exchanges
+        count once per collective. A boundary step computes both publish
+        paths, so it counts a ``boundary_pack`` and a ``dense_swap`` per
+        publish, as the reference counts both ``lax.cond`` branches."""
+        key = ("obs-profile",) + s["dist_key"]
+        n_shards = len(s["mesh"])
+
+        def build():
+            alg, ig, mesh = s["alg"], s["ig"], s["mesh"]
+            colors, aux, wl = dist.shard_state(mesh, *alg.init_state(ig))
+            kw = {}
+            if s["exchange"] != "dense":
+                colors = dist.shard_views(colors)
+                kw = dict(bcap=s["binfo"].capacities[0])
+            out = {}
+            for mode, step in zip(("dense", "sparse"), s["steps"]):
+                with ipgc.LAUNCH_COUNTS.scope() as lc, \
+                        ipgc.GATHER_COUNTS.scope() as gc, \
+                        dist.EXCHANGE_COUNTS.scope() as ec, \
+                        KERNEL_LAUNCHES.scope():
+                    step(colors, aux, wl, **kw)
+                    out[mode] = {
+                        "launches": {k: v // n_shards
+                                     for k, v in lc.items()},
+                        "gathers": {k: v // n_shards
+                                    for k, v in gc.items()},
+                        "exchanges": ec.as_dict()}
+            return out
+
+        return self.cached(key, build)
+
+    def _assemble_report(self, spec, g, result, meter, profile, stats0,
+                         tr) -> RunReport:
+        def section(field):
+            per_iter = {m: profile[m][field] for m in profile}
+            return {"per_iter": per_iter,
+                    "total": totals_from_trace(result.mode_trace, per_iter)}
+
+        exchanges = None
+        if spec.regime == "dist" and profile:
+            per_iter = {m: {k: v for k, v in profile[m]["exchanges"].items()
+                            if v} for m in profile}
+            # the byte formulas run over the PARTITIONED node count
+            # (prepare_partition pads n to a multiple of the shard count)
+            exchanges = exchange_section(
+                per_iter, meter.statics["ig"].n_nodes, result.mode_trace,
+                exchange=meter.statics["exchange"],
+                n_shards=len(meter.statics["mesh"]),
+                exchange_trace=result.exchange_trace,
+                exchange_bytes=result.exchange_bytes)
+        alg = spec.resolved_algo()
+        return RunReport(
+            regime=spec.regime, algo=alg.name, graph=self._graph_name(g),
+            n_nodes=g.n_nodes, n_colors=result.n_colors,
+            iterations=result.iterations, mode_trace=result.mode_trace,
+            host_dispatches=result.host_dispatches,
+            counts=list(result.counts),
+            timing=meter.timing(result.total_seconds),
+            launches=section("launches") if profile else {},
+            gathers=section("gathers") if profile else {},
+            exchanges=exchanges, cache=self._cache_section(stats0),
+            result=result, trace=tr)
+
     def _prepare(self, spec: ExecutionSpec, g, alg):
         """(prepared IPGCGraph, resolved window, chunk runners), cached per
         graph. The runners dict (the outlined regime's, keyed by step
@@ -288,16 +492,20 @@ class Session:
         _, ig, window, runners = self.cached(key, build)
         return ig, window, runners
 
-    def _run_host(self, spec: ExecutionSpec, g, *, policy,
-                  collect_tti) -> ColoringResult:
+    def _run_host(self, spec: ExecutionSpec, g, *, policy, collect_tti,
+                  meter=None) -> ColoringResult:
         alg = spec.resolved_algo()
         fused = alg.resolve_fused(spec.fused, default=False)
-        ig, window, _ = self._prepare(spec, g, alg)
+        with obs_trace.maybe_span("session.prepare"):
+            ig, window, _ = self._prepare(spec, g, alg)
         n = ig.n_nodes
         pol = policy or make_policy(spec.mode, spec.h)
         caps = bucket_capacities(n, ratio=spec.bucket_ratio)
         force_hub = ipgc.force_hub_enabled()
         dense_fn, sparse_fn = alg.step_fns(fused)
+        if meter is not None:
+            meter.statics = dict(kind="host", alg=alg, ig=ig, fused=fused,
+                                 window=window, force_hub=force_hub)
 
         colors, aux, wl = alg.init_state(ig)
         count = n
@@ -309,7 +517,9 @@ class Session:
         while count > 0 and it < spec.max_iter:
             use_dense = bool(pol(count, n))
             counts.append(count)
-            with Timer() as t:
+            with obs_trace.maybe_span(
+                    "session.iter", mode="D" if use_dense else "S",
+                    count=count), Timer() as t:
                 if use_dense:
                     colors, aux, wl = dense_fn(ig, colors, aux, wl,
                                                window=window,
@@ -323,6 +533,8 @@ class Session:
                                                 force_hub=force_hub)
                 count = int(wl.count)  # the Pipe's single scalar read-back
             trace.append("D" if use_dense else "S")
+            if meter is not None:
+                meter.add(t.seconds)
             if collect_tti:
                 tti.append(t.seconds)
             if isinstance(pol, AutoTuned):
@@ -338,8 +550,8 @@ class Session:
 
     # -- outlined Pipe -----------------------------------------------------------
 
-    def _run_outlined(self, spec: ExecutionSpec, g, *, policy,
-                      collect_tti) -> ColoringResult:
+    def _run_outlined(self, spec: ExecutionSpec, g, *, policy, collect_tti,
+                      meter=None) -> ColoringResult:
         """The reference's ``_run_outlined``: one chunk per capacity
         bucket, the worklist at ``caps[0]`` from the start; per chunk the
         bucket, the policy's device threshold and the static branch
@@ -351,15 +563,21 @@ class Session:
         alg = spec.resolved_algo()
         fused = alg.resolve_fused(spec.fused,
                                   default=OUTLINED_FUSED[self.device.type])
-        ig, window, runners = self._prepare(spec, g, alg)
-        if runners is None:
-            _, runners = self.cached(("runners", self.graph_key(ig), window),
-                                     lambda: (ig, {}))
+        with obs_trace.maybe_span("session.prepare"):
+            ig, window, runners = self._prepare(spec, g, alg)
+            if runners is None:
+                _, runners = self.cached(
+                    ("runners", self.graph_key(ig), window),
+                    lambda: (ig, {}))
         n = ig.n_nodes
         pol = policy or make_policy(spec.mode, spec.h)
         caps = bucket_capacities(n, ratio=spec.bucket_ratio)
         lows = chunk_lower_bounds(caps)
         force_hub = ipgc.force_hub_enabled()
+        if meter is not None:
+            meter.statics = dict(kind="outlined", alg=alg, ig=ig,
+                                 fused=fused, window=window,
+                                 force_hub=force_hub)
         rkey = (fused, force_hub, caps[0])
         runner = runners.get(rkey)
         if runner is None:
@@ -388,12 +606,16 @@ class Session:
             else:
                 branch = "cond"
             counts.append(count)
-            with Timer() as t:
+            with obs_trace.maybe_span("session.chunk", branch=branch,
+                                      count=count, cap=caps[bi]), \
+                    Timer() as t:
                 c = runner.run(caps[bi], branch=branch, thresh=thresh,
                                low=lows[bi], max_iter=spec.max_iter,
                                count=count, it=it)
             count, it = c.count, c.it
             trace.append("D" * c.nd + "S" * c.ns)
+            if meter is not None:
+                meter.add(t.seconds)
             if collect_tti:
                 tti.append(t.seconds)
             if isinstance(pol, AutoTuned):
@@ -410,7 +632,7 @@ class Session:
     # -- sharded distributed Pipe --------------------------------------------
 
     def _run_dist(self, spec: ExecutionSpec, g, *, policy, collect_tti,
-                  devices) -> ColoringResult:
+                  devices, meter=None) -> ColoringResult:
         alg = spec.resolved_algo()
         if not alg.shard_safe:
             raise ValueError(
@@ -430,23 +652,40 @@ class Session:
         fused = alg.resolve_fused(spec.fused, default=True)
         mesh = dist.resolve_mesh(spec.n_shards, devices, self.device)
         n_shards = len(mesh)
-        g2, new_of_old = self.partition(g, n_shards, balance=spec.balance)
+        bnd = spec.exchange != "dense"
+        # the exchange joins the key: a dense-built step must never serve
+        # a boundary run
         key = ("dist", _content_key(g), mesh, spec.window, spec.priority,
-               fused, spec.balance, alg, plan)
+               fused, spec.balance, alg, plan, spec.exchange)
+        with obs_trace.maybe_span("session.prepare"):
+            g2, new_of_old, memo = self._partition(g, n_shards, spec.balance)
 
-        def build():
-            if spec.window != "auto":
-                window = spec.window
-            else:
-                window = adaptive_window(g2) if alg.uses_window else 128
-            ig = alg.prepare(g2, priority=spec.priority, plan=plan,
-                             device=mesh[0])
-            dense_fn, sparse_fn = alg.make_dist_steps(
-                ig, mesh, window=window, fused=fused, exchange=spec.exchange)
-            return ig, window, dense_fn, sparse_fn
+            def build():
+                if spec.window != "auto":
+                    window = spec.window
+                else:
+                    window = adaptive_window(g2) if alg.uses_window else 128
+                ig = alg.prepare(g2, priority=spec.priority, plan=plan,
+                                 device=mesh[0])
+                binfo = thresh = None
+                if bnd:
+                    if "boundary" not in memo:
+                        memo["boundary"] = boundary_info(g2, n_shards)
+                    binfo = memo["boundary"]
+                    thresh = exchange_threshold(ig.n_nodes, n_shards,
+                                                spec.exchange)
+                steps = alg.make_dist_steps(
+                    ig, mesh, window=window, fused=fused,
+                    exchange=spec.exchange, boundary=binfo, thresh=thresh)
+                return ig, window, steps, binfo
 
-        ig, window, dense_fn, sparse_fn = self.cached(key, build)
+            ig, window, steps, binfo = self.cached(key, build)
+        dense_fn, sparse_fn = steps
         n = ig.n_nodes
+        if meter is not None:
+            meter.statics = dict(kind="dist", alg=alg, ig=ig, mesh=mesh,
+                                 exchange=spec.exchange, binfo=binfo,
+                                 steps=steps, dist_key=key)
         block = n // n_shards
         pol = policy or make_policy(spec.mode, spec.h)
         caps = bucket_capacities(block, ratio=spec.bucket_ratio)
@@ -454,6 +693,14 @@ class Session:
 
         colors, aux, wl = dist.shard_state(mesh, *alg.init_state(ig))
         count = n
+        xtrace: list[str] = []
+        xbytes: list[int] = []
+        if bnd:
+            # per-shard color views (DESIGN.md §13): every view starts as
+            # the initial vector, then tracks owned + ghost slots
+            colors = dist.shard_views(colors)
+            bcaps = list(binfo.capacities)
+            prev_mx = block    # changed-boundary high-water, predicts bcap
         trace: list[str] = []
         counts: list[int] = []
         tti: list[float] = []
@@ -462,17 +709,45 @@ class Session:
         while count > 0 and it < spec.max_iter:
             use_dense = bool(pol(count, n))
             counts.append(count)
-            with Timer() as t:
+            with obs_trace.maybe_span(
+                    "session.iter", mode="D" if use_dense else "S",
+                    count=count), Timer() as t:
                 if use_dense:
-                    colors, aux, wl = dense_fn(colors, aux, wl)
+                    if bnd:
+                        bcap = pick_bucket(
+                            bcaps, min(block, max(8, 2 * prev_mx)))
+                        colors, aux, wl, xs = dense_fn(colors, aux, wl,
+                                                       bcap=bcap)
+                    else:
+                        colors, aux, wl = dense_fn(colors, aux, wl)
                 else:
                     # any shard's live count is <= min(global count, block)
                     cap = pick_bucket(caps, min(count, block))
                     if wl.capacity > cap:
                         wl = dist.resize_worklist(wl, cap, n)
-                    colors, aux, wl = sparse_fn(colors, aux, wl)
-                count = int(wl.count)  # the Pipe's single scalar read-back
+                    if bnd:
+                        # the changed boundary slots are also <= the
+                        # worklist capacity a sparse iteration runs at
+                        bcap = pick_bucket(
+                            bcaps, min(cap, block, max(8, 2 * prev_mx)))
+                        colors, aux, wl, xs = sparse_fn(colors, aux, wl,
+                                                        bcap=bcap)
+                    else:
+                        colors, aux, wl = sparse_fn(colors, aux, wl)
+                if bnd:
+                    # the iteration's one read: the count and both stats
+                    count, npk, prev_mx = torch.cat(
+                        [wl.count.view(1), xs]).tolist()
+                    xtrace.append("b" if npk == epi
+                                  else ("d" if npk == 0 else "m"))
+                    xbytes.append(
+                        npk * packed_exchange_bytes(bcap, n_shards)
+                        + (epi - npk) * dense_swap_bytes(n))
+                else:
+                    count = int(wl.count)  # the Pipe's single read-back
             trace.append("D" if use_dense else "S")
+            if meter is not None:
+                meter.add(t.seconds)
             if collect_tti:
                 tti.append(t.seconds)
             if isinstance(pol, AutoTuned):
@@ -480,14 +755,19 @@ class Session:
             it += 1
 
         total = time.perf_counter() - t_start
-        full = colors[0][:n].cpu().numpy()
+        if bnd:
+            full = dist.views_to_colors(colors, n_shards, n)
+        else:
+            full = colors[0][:n].cpu().numpy()
+            xtrace = ["d"] * it
+            xbytes = [epi * dense_exchange_bytes(n)] * it
         final, n_colors = alg.finalize(full[new_of_old[:g.n_nodes]])
         return ColoringResult(colors=final, n_colors=n_colors, iterations=it,
                               mode_trace="".join(trace), counts=counts,
                               tti=tti, total_seconds=total,
-                              host_dispatches=it, exchange_trace="d" * it,
-                              exchange_bytes=[epi * dense_exchange_bytes(n)]
-                              * it)
+                              host_dispatches=it,
+                              exchange_trace="".join(xtrace),
+                              exchange_bytes=xbytes)
 
 
 _DEFAULT_SESSIONS: dict[str, Session] = {}

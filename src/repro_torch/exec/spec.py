@@ -3,7 +3,7 @@
 
 The host regime (the per-iteration host loop), the outlined regime (one
 chunk per capacity bucket) and the distributed regime (the sharded Pipe,
-dense exchange) run a spec on one graph; lane batching (``run_batch``, the
+dense or boundary exchange) run a spec on one graph; lane batching (``run_batch``, the
 stream service) replays the host regime on many graphs at once and checks
 its spec with ``validate_batchable``. The port has no ``impl`` or
 ``tile_rows`` knob: on a CUDA device the steps always run its kernels.

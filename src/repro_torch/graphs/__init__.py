@@ -1,8 +1,8 @@
 """Graph substrate of the port: the staged construction pipeline
 (ingest -> reorder -> layout plan -> assembly, DESIGN.md §8), CSR/ELL/COO
 structures, the dataset registry and the partitioning of the distributed
-Pipe. Host-side numpy, a copy of ``repro.graphs`` (minus sampling and
-the boundary sets of the packed exchange)."""
+Pipe with the boundary sets of its packed exchange. Host-side numpy, a
+copy of ``repro.graphs`` (minus sampling)."""
 from repro_torch.graphs.csr import (  # noqa: F401
     Graph,
     GraphArrays,

@@ -8,10 +8,17 @@ the streaming service's latency stamps (serve/clock.py): the default is
 ``time.perf_counter``; tests inject a ``ManualClock`` and assert span
 durations against exact values instead of wall-clock noise.
 
-Span names of the port: ``batch.run`` / ``batch.dispatch`` (the barrier
-batch, ``exec/batch.py``) and ``stream.pump`` / ``stream.dispatch`` (the
-stream service, ``serve/stream.py``). The engine loops' spans
-(``session.*``) come with ``Session.run(trace=)``, not ported yet.
+Span names of the port:
+
+  session.run / session.prepare / session.iter / session.chunk /
+      obs.profile — ``Session.run(trace=)`` (``exec/session.py``);
+      ``session.iter`` carries ``mode``/``count``, ``session.chunk``
+      ``branch``/``count``/``cap``, one per host dispatch
+  batch.run / batch.dispatch — the barrier batch (``exec/batch.py``)
+  stream.pump / stream.dispatch — the stream service (``serve/stream.py``)
+
+A span reads the host clock only: it never synchronizes with the device
+and reads nothing back from it.
 
 ``to_chrome()`` exports the Chrome trace-event JSON format (complete
 ``"X"`` events with microsecond ``ts``/``dur``, instants as ``"i"``),

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain version,
-and colorings (host loop, outlined regime, distributed Pipe, lane
-batching and the stream service) and BFS on the card against the same
-runs on the CPU. Needs a
+and colorings (host loop, outlined regime, distributed Pipe with the
+dense and the boundary exchange, traced runs, lane batching and the
+stream service) and BFS on the card against the same runs on the CPU.
+Needs a
 CUDA device and nvcc; skips without a device. Imports no JAX, so it runs
 where only PyTorch is installed:
 
@@ -524,3 +525,84 @@ def test_card_capture_refused_before_it_starts(dev, monkeypatch):
     monkeypatch.undo()
     assert st.run(1, step=step, window=64, force_hub=False) == 1
     assert len(st.trips) == 1
+
+
+@pytest.mark.parametrize("exchange", ["boundary", "auto"])
+@pytest.mark.parametrize("n_shards", [2, 4])
+@pytest.mark.parametrize("algo,fused", [("ipgc", True), ("ipgc", False),
+                                        ("jpl", None)])
+def test_card_boundary_exchange_equals_cpu(dev, algo, fused, n_shards,
+                                           exchange):
+    """The boundary exchange on S shards of one card equals S CPU shards
+    in every field but the times (exchange trace and bytes included) and
+    the dense exchange on the card in colors, iterations and mode trace;
+    its steps replay without a host sync."""
+    from repro_torch.algos import get_algorithm
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.policy import exchange_threshold
+    from repro_torch.graphs.partition import boundary_info
+    g = repro_torch.get_dataset("kron_g500-logn21_s", scale=0.05,
+                                layout="ell-tail", ell_cap=128)
+    kw = dict(algo=algo, fused=fused, exchange=exchange)
+    a = repro_torch.color_distributed(g, devices=[dev] * n_shards, **kw)
+    b = repro_torch.color_distributed(g, devices=["cpu"] * n_shards, **kw)
+    d = repro_torch.color_distributed(g, devices=[dev] * n_shards,
+                                      algo=algo, fused=fused)
+    np.testing.assert_array_equal(a.colors, b.colors)
+    np.testing.assert_array_equal(a.colors, d.colors)
+    assert (a.iterations, a.mode_trace, a.counts, a.exchange_trace,
+            a.exchange_bytes) == (b.iterations, b.mode_trace, b.counts,
+                                  b.exchange_trace, b.exchange_bytes)
+    assert (a.iterations, a.mode_trace) == (d.iterations, d.mode_trace)
+    # one dense and one sparse step under sync debug "error"
+    alg = get_algorithm(algo)
+    g2, _ = repro_torch.exec.default_session(dev).partition(g, n_shards)
+    ig = repro_torch.prepare(g2, device=dev)
+    mesh = (dev,) * n_shards
+    info = boundary_info(g2, n_shards)
+    dense, sparse = alg.make_dist_steps(
+        ig, mesh, window=128, fused=alg.resolve_fused(fused, default=True),
+        exchange=exchange, boundary=info,
+        thresh=exchange_threshold(ig.n_nodes, n_shards, exchange))
+    colors, aux, wl = dist.shard_state(mesh, *alg.init_state(ig))
+    colors = dist.shard_views(colors)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for step in (dense, sparse):
+            colors, aux, wl, xs = step(colors, aux, wl,
+                                       bcap=info.capacities[0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert xs.device.type == "cuda" and xs.shape == (2,)
+    for v in colors:
+        assert int(v[ig.n_nodes]) == repro_torch.core.ipgc.PAD_COLOR
+
+
+@pytest.mark.parametrize("spec_kw", [
+    dict(regime="host"), dict(regime="outlined", fused=True),
+    dict(regime="dist", n_shards=4, exchange="auto")],
+    ids=["host", "outlined", "dist"])
+def test_card_traced_run_launches_what_untraced_launches(dev, spec_kw):
+    """A traced run on the card launches the kernels an untraced run
+    launches (its work profile's launches are scoped away) and equals it;
+    its report's profile equals the CPU's."""
+    from repro_torch.exec import ExecutionSpec, Session
+    g = repro_torch.get_dataset("kron_g500-logn21_s", scale=0.05,
+                                layout="ell-tail", ell_cap=128)
+    spec = ExecutionSpec(**spec_kw)
+    s = Session(dev)
+    s.run(spec, g)                             # builds, captures
+    runs = []
+    for trace in (None, True, None):
+        with _build.KERNEL_LAUNCHES.scope() as kl:
+            r = s.run(spec, g, trace=trace)
+            runs.append((r, kl.as_dict()))
+    (plain, want), (rep, got), (_, again) = runs
+    assert got == want == again
+    np.testing.assert_array_equal(rep.colors, plain.colors)
+    assert (rep.iterations, rep.mode_trace) == \
+        (plain.iterations, plain.mode_trace)
+    cpu = Session("cpu").run(spec, g, trace=True)
+    assert (rep.launches, rep.gathers, rep.exchanges) == \
+        (cpu.launches, cpu.gathers, cpu.exchanges)

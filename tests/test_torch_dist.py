@@ -1,8 +1,8 @@
 """The port's distributed steps (``core/distributed.py``, ``algos/jpl.py``)
 against ``repro``'s shard_map steps on a one-device mesh, one dense and one
 sparse step of each family from the same mid-run state, at 1 and 4 shards
-on the CPU; the exchange-count invariant; and the errors of what the slice
-does not run. Exact: all state is int32/bool."""
+on the CPU; the exchange-count invariant; and the errors of what the
+distributed Pipe refuses. Exact: all state is int32/bool."""
 import dataclasses
 
 import jax
@@ -240,20 +240,27 @@ def test_resolve_mesh_on_cpu(monkeypatch):
 
 @pytest.mark.parametrize("exchange", ["boundary", "auto"])
 def test_boundary_exchange_is_not_ported(exchange):
+    """Once refused, the boundary exchange now runs through every entry
+    point (``tests/test_torch_boundary.py`` holds it against the
+    reference); the step constructors need the partition's boundary sets,
+    and an unknown exchange is still refused."""
     g = tget("europe_osm_s", scale=0.01, layout="pure-ell")
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        repro_torch.color_distributed(g, devices=["cpu"],
-                                      exchange=exchange)
+    dense = repro_torch.color_distributed(g, devices=["cpu"])
+    r = repro_torch.color_distributed(g, devices=["cpu"], exchange=exchange)
+    np.testing.assert_array_equal(r.colors, dense.colors)
+    assert set(r.exchange_trace) <= {"b", "d", "m"}
     ig = repro_torch.prepare(g, device="cpu")
-    with pytest.raises(NotImplementedError, match="boundary"):
+    with pytest.raises(ValueError, match="BoundaryInfo"):
         tdist.make_dist_dense_step(ig, (torch.device("cpu"),),
                                    exchange=exchange)
-    with pytest.raises(NotImplementedError, match="boundary"):
+    with pytest.raises(ValueError, match="BoundaryInfo"):
         get_algorithm("jpl").make_dist_steps(ig, (torch.device("cpu"),),
                                              window=128, fused=False,
                                              exchange=exchange)
     with pytest.raises(ValueError, match="unknown exchange"):
         ExecutionSpec(regime="dist", exchange="packed")
+    with pytest.raises(ValueError, match="unknown exchange"):
+        tdist.check_exchange("packed")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,7 @@
 """The port's host-loop Pipe against ``repro.core.color``: every layout kind
 x mode x step family on a power-law graph with hubs and on a road graph;
-the device rule; what is not ported yet; and the host helpers the
-engine shares with the reference."""
+the device rule; what the port refuses, as the reference does; and the
+host helpers the engine shares with the reference."""
 import numpy as np
 import pytest
 import torch
@@ -66,15 +66,21 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,what", [
-    # the distributed Pipe runs the dense exchange; the packed boundary
-    # exchange is what it does not run yet (the case keeps its test id)
+    # the packed boundary exchange, once unported, now runs; what the
+    # distributed Pipe still refuses is what the reference refuses too, a
+    # csr-segment graph (the case keeps its test id)
     pytest.param(dict(mode="dist-hybrid", exchange="boundary"),
                  "distributed", id="kw1-distributed"),
 ])
 def test_unported_regimes_raise(kw, what):
     g = get_dataset("europe_osm_s", scale=0.01, layout="pure-ell")
+    r = repro_torch.color(g, device="cpu", **kw)
+    dense = repro_torch.color(g, device="cpu", mode=kw["mode"])
+    np.testing.assert_array_equal(r.colors, dense.colors)
+    assert (r.iterations, r.mode_trace) == (dense.iterations,
+                                            dense.mode_trace)
     with pytest.raises(NotImplementedError, match=what):
-        repro_torch.color(g, device="cpu", **kw)
+        repro_torch.color(g, device="cpu", layout="csr-segment", **kw)
     s = Session("cpu")
     (batched,) = s.run_batch(ExecutionSpec(), [g])
     solo = s.run(ExecutionSpec(), g)
