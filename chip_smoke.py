@@ -8,17 +8,33 @@ are compiled from ``src/repro_torch/kernels/csrc`` at first use). Phases,
 each failing the script on any error:
 
 1. device: the card's name and power limit, and the kernels' build time;
+   then the tile tuner (``kernels/tune.py``) pointed at a temporary cache
+   file sweeps the three ELL kinds on the card, each over its registry
+   graph (each candidate's µs, the winner and the sweep's workload,
+   ``tune.sweep`` lines), a second lookup is a memo hit and a
+   fresh process reads the file without sweeping, so that the main
+   path's runs (``tile_rows="auto"``) find their tiles in the memo;
 2. kernels: each hand-written kernel against its plain PyTorch version
    on the card, at the shapes of the main paths and at edge cases,
    exactly; their times beside the plain version's, the byte bound and,
-   where one PyTorch call computes the same function, that call. The
+   where one PyTorch call computes the same function, that call. A
+   kernel the reference tiles runs at the ``tile_rows`` its main-path
+   call had (a recorded call keeps it; the kernels line's ``tile_rows``)
+   and again at the default block (``default_ms``). The
    kernels that gather the neighbours themselves (``conflict``,
    ``fused_compact``, ``fused_step``) are also timed against the gathers
    their earlier signature needed (``gather_ms``), and at the items block
    of the kron sparse steps' most-used capacity bucket (recorded during
    the ipgc runs of phases 3 and 4), as is ``compact``; ``compact`` (one
    launch, a decoupled look-back) also repeats 100 times at 2**21 and
-   50.8M flags, bit-equal every time;
+   50.8M flags, bit-equal every time; the five row kernels the
+   reference tiles (``mex_window``, ``conflict``, ``fused_compact``,
+   ``fused_step``, ``jpl_extrema``) equal their plain twins at
+   ``tile_rows`` 8, 32 and 128 at the kron dense shape (their ms per tile,
+   the kernels line's ``tile_ms``) and at the edge-case sizes (and 1024),
+   and, after europe's outlined runs, at europe's dense shape
+   (``tune.kernels_main_path`` lines, beside the default block's ms and
+   the tile "auto" resolves to);
 3. path: on kron_g500-logn21_s at scale 32 (2**21 nodes, ell-tail, hubs)
    and europe_osm_s at scale 127 (50.8M nodes, pure-ell), the hybrid Pipe
    (``repro_torch.color``) with ipgc two-phase and fused, jpl and
@@ -91,7 +107,11 @@ each failing the script on any error:
    operations per iteration. The fused family wins ``fused=None`` on CUDA
    where it is faster warm on both graphs (``outlined.fused_rule``). The
    kron ipgc two-phase warm run is repeated traced as in phase 3 (the
-   same kernel and replayed launches).
+   same kernel and replayed launches). After kron's profile traces, the
+   ``tune`` runs: kron ipgc two-phase in the host loop at
+   ``tile_rows`` 8, 32, 128 and "auto", each equal to phase 3's run in
+   colors, iterations and mode trace, seconds logged; one outlined run at
+   8 and 32 on one session, each tile capturing its own trips.
 
 7. batch and stream (after phase 6 and the card-vs-CPU checks, reusing
    phase 3's graphs and results): the heavy-tail request mix
@@ -126,6 +146,30 @@ each failing the script on any error:
    line's ``batch_launches`` are the replayed launches of this phase's
    run_batch calls and streams.
 
+8. lm (last): the LM serving path. The five LM archs' smoke configs in
+   fp32 (TF32 off) on the card and on the CPU, the same weights and
+   tokens: prefill logits and three teacher-forced decode steps, with the
+   plain and the int8 cache, within ``LM_CPU_TOL``; then Qwen3-30B-A3B at
+   its published widths (d_model 2048, 32 heads, 4 KV heads, head_dim
+   128, 128 experts top-8 of width 768, vocab 151,936, rope theta 1e6),
+   8 of its 48 layers, bf16, random weights from a seed:
+   ``launch.serve.serve`` with the reference driver's defaults (batch 8,
+   prompt 64, 32 generated tokens, temperature 0.8) with a bf16 and an
+   int8 KV cache, each after an untimed warm-up call; init seconds, prefill
+   ms and tok/s, decode ms a step and tok/s, peak GiB (``lm.serve``
+   lines); every logit finite; the int8 run's first decode step within
+   ``LM_INT8_REL`` of the bf16 run's; and decode at position 63 (prefill
+   of 63 tokens, one step) against ``forward`` at 63 within
+   ``LM_DECODE_REL``, at a capacity factor that drops no token (the MoE
+   drops over-capacity tokens, and 504 or 512 tokens drop others than 8
+   do), with the served factor's distance logged beside it; one decode
+   step over a bf16 and an int8 cache of the same prompts, interleaved
+   wall ms and one ``torch.profiler`` trace of each (device µs, launches,
+   the top operations: ``lm.decode_profile``).
+
+The ``done`` line gives the seconds of each stretch of ``main``
+(``phase_seconds``).
+
 BFS does not run on europe at full size: its road-like chain needs on the
 order of millions of levels from any source.
 
@@ -141,6 +185,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -159,8 +204,8 @@ from repro_torch.core import bfs as bfs_mod  # noqa: E402
 from repro_torch.core import distributed as dist  # noqa: E402
 from repro_torch.core import ipgc, jpl_color, vb_color  # noqa: E402
 from repro_torch.core.engine import adaptive_window  # noqa: E402
-from repro_torch.core.policy import (device_threshold,  # noqa: E402
-                                     make_policy)
+from repro_torch.core.policy import (Timer,  # noqa: E402
+                                     device_threshold, make_policy)
 from repro_torch.core.worklist import (Worklist,  # noqa: E402
                                        bucket_capacities, pick_bucket,
                                        resize_items)
@@ -182,6 +227,7 @@ from repro_torch.kernels.fused_step import \
     fused_step_rows_plain  # noqa: E402
 from repro_torch.kernels.jpl_prio import jpl_extrema_plain  # noqa: E402
 from repro_torch.kernels.mex_window import mex_window_plain  # noqa: E402
+from repro_torch.kernels import tune  # noqa: E402
 from repro_torch.serve import ManualClock, StreamConfig  # noqa: E402
 
 from _gather_cases import gather_case, gathered  # noqa: E402
@@ -461,8 +507,9 @@ class Recorder:
     """Wraps ``ops.<name>`` while active: counts its calls by row count
     (``rows_of(args)``; None skips the call) and keeps the arguments of the
     first call at each row count (the operands the main path hands the
-    kernel, as they were; with ``copy``, copies of its tensors, for a
-    caller that writes into them after the call)."""
+    kernel, as they were, and its keywords, ``tile_rows`` among them, so a
+    kept call runs again at the block the path ran; with ``copy``, copies
+    of its tensors, for a caller that writes into them after the call)."""
 
     def __init__(self, name: str, rows_of=items_rows, copy: bool = False):
         self.name, self.rows_of, self.copy = name, rows_of, copy
@@ -481,7 +528,7 @@ class Recorder:
                     if self.copy:
                         kept = tuple(a.clone() if torch.is_tensor(a) else a
                                      for a in args)
-                    self.args[r] = (kept, kw)
+                    self.args[r] = (kept, dict(kw))
             return real(*args, **kw)
 
         setattr(ops, self.name, spy)
@@ -496,27 +543,37 @@ class Recorder:
         return r, self.calls[r], self.args[r]
 
 
+def untiled(kw: dict) -> dict:
+    """A recorded call's keywords without ``tile_rows``, which the plain
+    twins and the work reckonings do not take."""
+    return {k: v for k, v in kw.items() if k != "tile_rows"}
+
+
 def main_path_operands(ig, window: int):
     """The operands the dense steps hand the kernels, taken from the state
-    two fused dense iterations into a run on ``ig``: ``conflict``'s and
+    two fused dense iterations into a run on ``ig`` at the tile the main
+    path's runs resolve (``tile_rows="auto"``): ``conflict``'s and
     ``fused_compact``'s as the two-phase and fused dense steps pass them
     from that state (recorded), the others rebuilt as the steps build
     them."""
+    tile = tune.resolve_tile_rows("auto", ig.layout_kind, ig.device)
     colors, base, wl = init_ipgc_state(ig)
     for _ in range(2):
         colors, base, wl = ipgc.fused_dense_step(ig, colors, base, wl,
-                                                 window=window)
+                                                 window=window,
+                                                 tile_rows=tile)
     with Recorder("conflict", all_rows) as rec_c:
-        ipgc.dense_step(ig, colors, base, wl, window=window)
+        ipgc.dense_step(ig, colors, base, wl, window=window, tile_rows=tile)
     with Recorder("fused_compact", all_rows) as rec_f:
-        ipgc.fused_dense_step(ig, colors, base, wl, window=window)
+        ipgc.fused_dense_step(ig, colors, base, wl, window=window,
+                              tile_rows=tile)
     extra = None
     if ig.n_hub > 0:
         extra = ipgc._hub_forbidden(ig, colors, base, window)[ig.hub_slot]
     return dict(nc=colors[ig.ell_idx], base=base, extra=extra,
                 active=wl.mask, capacity=wl.capacity, n=ig.n_nodes,
                 ids=torch.arange(ig.n_nodes, dtype=torch.int32,
-                                 device=ig.device),
+                                 device=ig.device), tile_rows=tile,
                 conflict=rec_c.most_used()[2],
                 fused_compact=rec_f.most_used()[2])
 
@@ -652,16 +709,20 @@ def old_gathers(args, hub_at: "int | None"):
 
 
 def gather_row(name, args, kw, shape: dict, reps: int) -> dict:
-    """A gathering kernel's row at one shape: equality with the plain
-    twin, kernel / plain times, the bound on these inputs and the time of
-    the earlier signature's gathers (``gather_ms``: the neighbour tiles'
-    ``tile_gather_ms`` plus the hub rows' ``hub_gather_ms``)."""
+    """A gathering kernel's row at one recorded call: equality with the
+    plain twin, kernel / plain times (the kernel at the call's own
+    ``tile_rows`` and at the default block), the bound on these inputs
+    and the time of the earlier signature's gathers (``gather_ms``: the
+    neighbour tiles' ``tile_gather_ms`` plus the hub rows'
+    ``hub_gather_ms``)."""
     plain, work, hub_at, _ = GATHERING[name]
     kernel = getattr(ops, name)
-    nbytes, ops_ = work(*args, **kw)
+    pkw = untiled(kw)
+    nbytes, ops_ = work(*args, **pkw)
     row = kernel_row(name, lambda: kernel(*args, **kw),
-                     lambda: plain(*args, **kw), nbytes, ops_, shape, None,
-                     reps)
+                     lambda: plain(*args, **pkw), nbytes, ops_, shape, None,
+                     reps, tile_rows=kw.get("tile_rows"),
+                     default=lambda: kernel(*args, **pkw))
     tiles, hub, ell_rows = old_gathers(args, hub_at)
     row["tile_gather_ms"] = cuda_ms(tiles, reps)
     row["hub_gather_ms"] = None if hub is None else cuda_ms(hub, reps)
@@ -688,17 +749,28 @@ def bottomup_frontier(ig, levels: int = 2) -> torch.Tensor:
 
 
 def kernel_row(name, kernel, plain, nbytes, ops_, shape: dict,
-               library=None, reps: int = 10) -> dict:
+               library=None, reps: int = 10, tile_rows=None,
+               default=None) -> dict:
     """One kernel's row of the kernels line: equality with the plain
     version at main-path shapes, then kernel / plain / library times and
-    the bound (its launches are filled in from the path runs)."""
-    err = assert_equal(kernel(), plain(), f"{name} at main-path shapes")
+    the bound (its launches are filled in from the path runs). ``kernel``
+    runs at the main path's ``tile_rows``; with a tile, ``default`` is the
+    same call at the default block (``default_ms``), also held equal."""
+    want = plain()
+    err = assert_equal(kernel(), want, f"{name} at main-path shapes, "
+                       f"tile_rows={tile_rows}")
     t_bound, by = bound(nbytes, ops_)
     ms = cuda_ms(kernel, reps)
+    default_ms = ms
+    if tile_rows is not None:
+        assert_equal(default(), want, f"{name} at main-path shapes, "
+                     "default block")
+        default_ms = cuda_ms(default, reps)
     return dict(
         name=name, route="cuda", source=SOURCES[name][0],
         replaces=SOURCES[name][1], launches=0, max_abs_err=err,
-        equal=True, ms=ms, kernel_ms=ms, plain_ms=cuda_ms(plain, 3),
+        equal=True, ms=ms, kernel_ms=ms, tile_rows=tile_rows,
+        default_ms=default_ms, plain_ms=cuda_ms(plain, 3),
         bound_ms=t_bound * 1e3, bound_by=by,
         library_ms=None if library is None else cuda_ms(library, reps),
         shape=shape)
@@ -720,6 +792,14 @@ def stream_ops(fn, reps: int = 10) -> list:
             for e in prof.key_averages()]
 
 
+def jpl_round_tile(ig, ids) -> torch.Tensor:
+    """The JPL dense round's neighbour priorities at round 0, every node
+    pending."""
+    pr = round_hash(ids, torch.zeros((), dtype=torch.int32,
+                                     device=ig.device))
+    return torch.cat([pr, pr.new_full((1,), -1)])[ig.ell_idx]
+
+
 def kernel_phase(ig, window: int, reps: int = 10) -> dict:
     """Each kernel at the kron main paths' shapes (the IPGC dense step, the
     JPL dense round, a bottom-up BFS level): equality with the plain
@@ -728,17 +808,22 @@ def kernel_phase(ig, window: int, reps: int = 10) -> dict:
     earlier signature needed (``gather_ms``)."""
     o = main_path_operands(ig, window)
     r, k = o["nc"].shape
-    w = window
+    w, tile = window, o["tile_rows"]
     mask = o["active"]
     shape = dict(rows=r, k=k, window=w, hubs=o["extra"] is not None)
     rows = {}
 
     def entry(name, kernel, plain, nbytes, ops_, library=None):
-        rows[name] = kernel_row(name, kernel, plain, nbytes, ops_, shape,
-                                library, reps)
+        """``kernel(t)`` at tile ``t``; untiled kernels ignore it."""
+        tiled = name in ("mex_window", "jpl_extrema")
+        rows[name] = kernel_row(
+            name, lambda: kernel(tile if tiled else None), plain, nbytes,
+            ops_, shape, library, reps, tile if tiled else None,
+            lambda: kernel(None))
 
     entry("mex_window",
-          lambda: ops.mex_window(o["nc"], o["base"], o["extra"], w),
+          lambda t: ops.mex_window(o["nc"], o["base"], o["extra"], w,
+                                   tile_rows=t),
           lambda: mex_window_plain(o["nc"], o["base"], o["extra"], w),
           nbytes=r * k * 4 + r * 4 + (0 if o["extra"] is None else r * w)
           + r * 4,
@@ -750,31 +835,28 @@ def kernel_phase(ig, window: int, reps: int = 10) -> dict:
     rows["fused_compact"]["stream_ops"] = stream_ops(
         lambda: ops.fused_compact(*args, **kw))
     entry("compact",
-          lambda: ops.compact(mask, o["capacity"], o["n"]),
+          lambda t: ops.compact(mask, o["capacity"], o["n"]),
           lambda: compact_plain(mask, o["capacity"], o["n"]),
           nbytes=r + o["capacity"] * 4 + 4, ops_=r,
           library=lambda: torch.nonzero(mask))
     rows["compact"]["stream_ops"] = stream_ops(
         lambda: ops.compact(mask, o["capacity"], o["n"]))
-    # the JPL dense round's tile at round 0, every node pending
-    pr = round_hash(o["ids"], torch.zeros((), dtype=torch.int32,
-                                          device=ig.device))
-    del o
-    npr = torch.cat([pr, pr.new_full((1,), -1)])[ig.ell_idx]
-    entry("jpl_extrema", lambda: ops.jpl_extrema(npr),
+    npr = jpl_round_tile(ig, o["ids"])
+    entry("jpl_extrema", lambda t: ops.jpl_extrema(npr, tile_rows=t),
           lambda: jpl_extrema_plain(npr),
           nbytes=r * k * 4 + r * 8, ops_=r * k * 2)
-    del npr
+    TILE_MS.update(tile_kernels_main_path(o, npr, w, KRON["name"]))
+    del o, npr
     # a bottom-up BFS level's tile; bfs.bottomup_step passes unvisited all
     # true, so the probe is a row any()
     frontier = bottomup_frontier(ig)
     nbr = torch.cat([frontier, frontier.new_zeros(1)])[ig.ell_idx]
     unvisited = torch.ones(r, dtype=torch.bool, device=ig.device)
-    entry("frontier_probe", lambda: ops.frontier_probe(nbr, unvisited),
+    entry("frontier_probe", lambda t: ops.frontier_probe(nbr, unvisited),
           lambda: frontier_probe_plain(nbr, unvisited),
           nbytes=r * k + 2 * r, ops_=r * k,
           library=lambda: torch.any(nbr, dim=1))
-    log(phase="kernels.main_path", rows=list(rows.values()),
+    log(phase="kernels.main_path", rows=list(rows.values()), tile_rows=tile,
         frontier_size=int(frontier.sum()))
     return rows
 
@@ -790,6 +872,8 @@ def build_graph(spec: dict):
 
 
 _peak_bytes = 0
+#: kernel -> its ms at each tile at the kron dense shape (the kernels line)
+TILE_MS: dict = {}
 
 
 def reset_peak() -> None:
@@ -885,8 +969,9 @@ def sparse_row(rec: Recorder, reps: int) -> dict:
                  **counts)
     row = gather_row(rec.name, args, kw, shape, reps)
     return {key: row[key] for key in (
-        "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-        "gather_ms", "tile_gather_ms", "hub_gather_ms", "ell_rows_ms")}
+        "shape", "max_abs_err", "ms", "tile_rows", "default_ms", "plain_ms",
+        "bound_ms", "bound_by", "gather_ms", "tile_gather_ms",
+        "hub_gather_ms", "ell_rows_ms")}
 
 
 def path_phase(g, build_s: float, rows: "dict | None" = None,
@@ -1788,7 +1873,7 @@ def lane_call_row(name: str, args, kw, what: str, rows: int,
         return getattr(ops, name)(*args, **kw)
 
     def plain():
-        return LANE_PLAIN[name](*args, **kw)
+        return LANE_PLAIN[name](*args, **untiled(kw))
 
     err = assert_equal(kernel(), plain(), f"{name} on {what}")
     LANE_CHECKS.append((name, rows))
@@ -1820,12 +1905,12 @@ def lane_trip_kernels(st, step, what: str, need, trips: int = 2) -> dict:
     buf = st.buf.clone()
     force_hub = ipgc.force_hub_enabled()
     for _ in range(trips):
-        st._trip(buf, step, st.sc.window, force_hub)
+        st._trip(buf, step, st.sc.window, force_hub, None)
     recs = [Recorder(name, lambda a: 0, copy=True) for name in LANE_PLAIN]
     with contextlib.ExitStack() as stack:
         for rec in recs:
             stack.enter_context(rec)
-        st._trip(buf, step, st.sc.window, force_hub)
+        st._trip(buf, step, st.sc.window, force_hub, None)
     del buf
     calls = [lane_call_row(rec.name, *rec.args[0], what,
                            st.b * st.sc.n_pad) for rec in recs if rec.args]
@@ -2185,28 +2270,507 @@ def batch_phase(big: list) -> dict:
     return launches
 
 
+# --- the tile tuner ----------------------------------------------------------------
+
+#: kron's host-loop colorings run again at each tile: ipgc two-phase (the
+#: fused runs were cut to hold the script's time; the fused kernels are
+#: held against their plain twins at every tile in phase 2)
+TUNE_RUNS = (("ipgc", False),)
+#: the tiles of those runs, beside the default run of phase 3 ("auto")
+TUNE_TILES = tune.CANDIDATES + ("auto",)
+
+
+def tune_sweep_phase(cache_file: str) -> dict:
+    """Point the tuner at ``cache_file`` and sweep the three ELL kinds on
+    the card (each candidate's µs and the winner logged); a second lookup
+    is a memo hit, and a fresh process reads the file without sweeping.
+    Runs before the main path, so that its runs find the tuned tiles in
+    the memo. Returns kind -> tile."""
+    os.environ[tune.CACHE_ENV] = cache_file
+    tune.clear_memo()
+    tiles = {}
+    for kind in tune.ELL_KINDS:
+        t0 = time.perf_counter()
+        with _build.KERNEL_LAUNCHES.scope() as kl:
+            cfg = tune.get_tile_config(kind)
+            if any(kl.as_dict().values()):
+                raise AssertionError("the sweep's launches were counted")
+        seconds = time.perf_counter() - t0
+        if tune.get_tile_config(kind) is not cfg:
+            raise AssertionError(f"tune {kind}: the second lookup swept")
+        if set(cfg.micros) != {str(c) for c in tune.CANDIDATES}:
+            raise AssertionError(f"tune {kind}: candidates {cfg.micros}")
+        tiles[kind] = cfg.tile_rows
+        name, layout, copies = tune._SWEEP_GRAPHS[kind]
+        sg = repro_torch.get_dataset(name, scale=tune._SWEEP_SCALE,
+                                     **layout)
+        log(phase="tune.sweep", kind=kind,
+            key=tune.tune_key(tune.backend_name(torch.device("cuda")), kind),
+            micros=cfg.micros, tile_rows=cfg.tile_rows, seconds=seconds,
+            sweep_shape=dict(graph=name, scale=tune._SWEEP_SCALE,
+                             copies=copies, rows=sg.n_nodes * copies,
+                             k=sg.ell_width, window=tune._SWEEP_WINDOW,
+                             reps=tune._SWEEP_REPS))
+    code = ("import json, sys; sys.path.insert(0, 'src');"
+            "from repro_torch.kernels import tune;"
+            "tune.sweep = lambda *a, **k: sys.exit('swept again');"
+            "print(json.dumps({k: tune.get_tile_config(k).tile_rows "
+            "for k in tune.ELL_KINDS}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         check=True).stdout
+    fresh = json.loads(out.strip().splitlines()[-1])
+    if fresh != tiles:
+        raise AssertionError(f"a fresh process read {fresh}, not {tiles}")
+    with open(cache_file) as f:
+        data = json.load(f)
+    log(phase="tune.cache", file_version=data["version"],
+        keys=sorted(data["entries"]), fresh_process=fresh)
+    return tiles
+
+
+def tile_row(name: str, kernel, plain) -> dict:
+    """One row kernel at the tuner's tiles on one call's operands: equal
+    to its plain twin at each, and its time at each beside the default
+    block's."""
+    want = plain()
+    out = {"default": cuda_ms(lambda: kernel(None))}
+    for t in tune.CANDIDATES:
+        assert_equal(kernel(t), want, f"{name} tile_rows={t}")
+        out[str(t)] = cuda_ms(lambda: kernel(t))
+    return out
+
+
+def tile_kernels_main_path(o: dict, npr, window: int, graph: str) -> dict:
+    """The five row kernels the reference tiles at ``graph``'s dense shape
+    (``main_path_operands``), at each candidate tile: equal to their plain
+    twins; ms per tile, beside the default block's and the tile the main
+    path resolves ("auto")."""
+    w = window
+    c_args, _ = o["conflict"]
+    f_args, f_kw = o["fused_compact"]
+    f_kw = untiled(f_kw)
+    s_args = f_args[:8] + f_args[9:]
+    rows = {
+        "mex_window": tile_row(
+            "mex_window",
+            lambda t: ops.mex_window(o["nc"], o["base"], o["extra"], w,
+                                     tile_rows=t),
+            lambda: mex_window_plain(o["nc"], o["base"], o["extra"], w)),
+        "conflict": tile_row(
+            "conflict", lambda t: ops.conflict(*c_args, tile_rows=t),
+            lambda: conflict_rows_plain(*c_args)),
+        "fused_compact": tile_row(
+            "fused_compact",
+            lambda t: ops.fused_compact(*f_args, **f_kw, tile_rows=t),
+            lambda: fused_compact_rows_plain(*f_args, **f_kw)),
+        "fused_step": tile_row(
+            "fused_step", lambda t: ops.fused_step(*s_args, tile_rows=t),
+            lambda: fused_step_rows_plain(*s_args)),
+        "jpl_extrema": tile_row(
+            "jpl_extrema", lambda t: ops.jpl_extrema(npr, tile_rows=t),
+            lambda: jpl_extrema_plain(npr)),
+    }
+    log(phase="tune.kernels_main_path", graph=graph, rows=o["nc"].shape[0],
+        k=o["nc"].shape[1], window=w, auto_tile=o["tile_rows"],
+        ms_by_tile=rows, equal=True)
+    return rows
+
+
+def tile_check_phase(g) -> None:
+    """The five row kernels at ``g``'s dense shape at every candidate tile
+    (``tile_kernels_main_path``): the tile the main path resolves against
+    the default block at a shape other than kron's."""
+    ig = repro_torch.prepare(g)
+    o = main_path_operands(ig, adaptive_window(g))
+    tile_kernels_main_path(o, jpl_round_tile(ig, o["ids"]),
+                           adaptive_window(g), g.name)
+    del ig, o
+    torch.cuda.empty_cache()
+
+
+def tile_kernels_edge_cases(dev) -> None:
+    """The five row kernels at the edge-case sizes, each at every
+    candidate tile (and blocks past the 1024-thread cap), equal to their
+    plain twins."""
+    def t(a):
+        return None if a is None else torch.from_numpy(np.asarray(a)).to(dev)
+
+    rng = np.random.default_rng(11)
+    names = ("colors", "priority", "ell", "rows", "base", "cu", "pu", "ids",
+             "active", "pending", "hub_forb", "hub_lose", "hub_slot")
+    checked = 0
+    for rg in (1, 7, 257, 3000):
+        for k in (1, 8, 40, 128):
+            for w in (32, 256):
+                for sparse, hub in ((False, False), (True, True)):
+                    c = gather_case(rg * 3 + k + w + sparse, rg, k,
+                                    sparse=sparse, hub=hub, window=w, lo=3)
+                    r = len(c["cu"])
+                    nc = rng.integers(-2, 300, size=(r, k)).astype(np.int32)
+                    base = (rng.integers(0, 4, size=r) * w).astype(np.int32)
+                    extra = (rng.random((r, w)) < 0.25) if hub else None
+                    npr = t(np.where(rng.random((r, k)) < 0.3, -1, nc))
+                    m = [t(a) for a in (nc, base, extra)]
+                    f = [t(c[n]) for n in names]
+                    s_ = f[:8] + f[9:]
+                    what = f"rg={rg} k={k} w={w} sparse={sparse}"
+                    for tile in tune.CANDIDATES + (1024,):
+                        assert_equal(ops.mex_window(*m, w, tile_rows=tile),
+                                     mex_window_plain(*m, w),
+                                     f"mex_window {what} tile={tile}")
+                        assert_equal(ops.jpl_extrema(npr, tile_rows=tile),
+                                     jpl_extrema_plain(npr),
+                                     f"jpl_extrema {what} tile={tile}")
+                        assert_equal(ops.conflict(*f[:4], *f[5:8], f[9],
+                                                  tile_rows=tile),
+                                     conflict_rows_plain(*f[:4], *f[5:8],
+                                                         f[9]),
+                                     f"conflict {what} tile={tile}")
+                        kw = dict(capacity=r, n_sentinel=c["n"])
+                        assert_equal(ops.fused_compact(*f, w, **kw,
+                                                       tile_rows=tile),
+                                     fused_compact_rows_plain(*f, w, **kw),
+                                     f"fused_compact {what} tile={tile}")
+                        assert_equal(ops.fused_step(*s_, w, tile_rows=tile),
+                                     fused_step_rows_plain(*s_, w),
+                                     f"fused_step {what} tile={tile}")
+                        checked += 5
+    log(phase="tune.kernels_edge_cases", calls_checked=checked, equal=True,
+        tiles=list(tune.CANDIDATES) + [1024])
+
+
+def tune_runs_phase(g, host: dict) -> None:
+    """Kron's host-loop runs of ``TUNE_RUNS`` at each tile and
+    "auto": every run equal to phase 3's default run in colors,
+    iterations and mode trace, its seconds logged; then one outlined run
+    at two tiles on one session, each capturing its own trips."""
+    for algo, fused in TUNE_RUNS:
+        want = host[(algo, fused)]
+        for tile in TUNE_TILES:
+            start_counts()
+            r = repro_torch.color(g, algo=algo, fused=fused, tile_rows=tile)
+            if not (np.array_equal(r.colors, want.colors)
+                    and (r.iterations, r.mode_trace)
+                    == (want.iterations, want.mode_trace)):
+                raise AssertionError(f"{g.name} {algo} fused={fused} "
+                                     f"tile_rows={tile}: differs from the "
+                                     "default run")
+            log(phase="tune.run", graph=g.name, algo=algo, fused=fused,
+                tile_rows=tile, iterations=r.iterations,
+                color_seconds=r.total_seconds,
+                default_seconds=want.total_seconds, identical=True,
+                kernel_launches={k: v for k, v in
+                                 _build.KERNEL_LAUNCHES.as_dict().items()
+                                 if v})
+    want = host[("ipgc", False)]
+    sess = Session()
+    for tile in (8, 32):
+        with chunk_mod.CHUNK_COUNTS.scope() as cc:
+            r = sess.run(ExecutionSpec(regime="outlined", fused=False,
+                                       tile_rows=tile), g)
+            graphs = cc["graphs"]
+        if not (np.array_equal(r.colors, want.colors)
+                and r.mode_trace == want.mode_trace):
+            raise AssertionError(f"outlined tile_rows={tile}: differs from "
+                                 "the host loop")
+        if graphs == 0:
+            raise AssertionError(f"outlined tile_rows={tile}: replayed "
+                                 "another tile's trips")
+        log(phase="tune.outlined", graph=g.name, tile_rows=tile,
+            graphs_captured=graphs, color_seconds=r.total_seconds,
+            identical_to_host_loop=True)
+    tiles = {tk[2] for key, entry in sess.cache.items() if key[0] == "prep"
+             for runner in entry[3].values() for tk in runner.trips}
+    if tiles != {8, 32}:
+        raise AssertionError(f"outlined trips keyed by {tiles}")
+    del sess
+    torch.cuda.empty_cache()
+
+
+# --- the LM serving path ------------------------------------------------------------
+
+LM_ARCHS = ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b", "nemotron-4-340b",
+            "gemma-7b", "minitron-4b")
+#: the full-width serving cell: Qwen3-30B-A3B at its published widths, 8 of
+#: its 48 layers (the 48 would take ~61 GB and the coloring phases run
+#: first), bf16, served with the reference driver's defaults
+LM_ARCH = "qwen3-moe-30b-a3b"
+LM_LAYERS = 8
+LM_SERVE = dict(batch=8, prompt_len=64, gen=32, temperature=0.8)
+LM_SEED = 0
+#: card = CPU at the smoke configs in fp32, TF32 off: sums in another
+#: order than the CPU's, a few ulps over at most a few hundred terms
+LM_CPU_TOL = 1e-4
+#: the int8 cache at the smoke configs: one int8 rounding on the other
+#: side of .5 moves an entry by 1/127 of its row's absmax
+LM_CPU_TOL_Q8 = 2e-3
+#: decode at position 63 against forward, bf16: relative RMS of the (B, V)
+#: logits. The two paths round at other places (504- and 8-row products
+#: against a 512-row one; the decode softmax against the flash loop), each
+#: at bf16's unit roundoff 2^-8; a CPU rehearsal at a narrower MoE config
+#: (d 512, 32 experts, 4 layers) gave 0.4%, and this allows 5x that for
+#: the card's other GEMM paths and the deeper stack. fp8's roundoff (2^-4,
+#: 16x) would give ~6% and fail
+LM_DECODE_REL = 0.02
+#: the int8 cache against the bf16 one at the first decode step: the
+#: reference's ~1e-2 relative attention error diluted in the residual
+#: stream (the CPU rehearsal: 0.5%), with 10x room
+LM_INT8_REL = 0.05
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def _max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def lm_card_vs_cpu_phase() -> None:
+    """The five LM smoke configs in fp32 on the card and on the CPU, the
+    same weights and tokens: prefill logits and three teacher-forced
+    decode steps (plain and int8 cache) within ``LM_CPU_TOL``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tfm
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for arch in LM_ARCHS:
+            cfg = get_arch(arch).make_smoke()
+            params, _ = tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                                        device="cpu")
+            card = {k: ({kk: vv.cuda() for kk, vv in v.items()}
+                        if isinstance(v, dict) else v.cuda())
+                    for k, v in params.items()}
+            toks = torch.from_numpy(np.random.default_rng(1).integers(
+                0, cfg.vocab, (2, 12)))
+            errs = {}
+            for int8 in (False, True):
+                got, gc_ = tfm.prefill(card, toks.cuda()[:, :9], cfg,
+                                       max_len=16)
+                want, wc = tfm.prefill(params, toks[:, :9], cfg, max_len=16)
+                e = [_max_abs(got.cpu(), want)]
+                if int8:
+                    gc_, wc = tfm.quantize_cache(gc_), tfm.quantize_cache(wc)
+                for i in range(9, 12):
+                    got, gc_ = tfm.decode_step(card, toks.cuda()[:, i:i + 1],
+                                               gc_, cfg)
+                    want, wc = tfm.decode_step(params, toks[:, i:i + 1], wc,
+                                               cfg)
+                    e.append(_max_abs(got.cpu(), want))
+                tol = LM_CPU_TOL_Q8 if int8 else LM_CPU_TOL
+                scale = max(1.0, float(want.abs().max()))
+                if max(e) > tol * scale:
+                    raise AssertionError(f"lm {arch} int8={int8}: card "
+                                         f"differs from the CPU by {e}")
+                errs["int8" if int8 else "plain"] = e
+            log(phase="lm.card_vs_cpu", arch=arch, max_abs_err=errs,
+                tol=dict(plain=LM_CPU_TOL, int8=LM_CPU_TOL_Q8), equal=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def lm_decode_profile(params, cfg, prompts, reps: int = 3) -> dict:
+    """One decode step over a bf16 and an int8 cache of the same prompts,
+    in one run: wall ms of ``reps`` steps of each, interleaved, then one
+    step of each under ``torch.profiler``: device µs and operations (the
+    events on the card: kernels, copies, memsets), the host's ATen calls,
+    and the device operations that take the most time. Each step writes the
+    cache at the same position (its returned cache is dropped)."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.models import transformer as tfm
+
+    act = torch.profiler.ProfilerActivity
+    out = {}
+    with torch.inference_mode():
+        _, cache = tfm.prefill(params, prompts, cfg,
+                               max_len=prompts.shape[1] + 1)
+        caches = {"bf16": cache, "int8": tfm.quantize_cache(cache)}
+        tok = prompts[:, -1:]
+        for c in caches.values():              # warm
+            tfm.decode_step(params, tok, c, cfg)
+        walls = {name: [] for name in caches}
+        for _ in range(reps):
+            for name, c in caches.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tfm.decode_step(params, tok, c, cfg)
+                torch.cuda.synchronize()
+                walls[name].append((time.perf_counter() - t0) * 1e3)
+        for name, c in caches.items():
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as p:
+                tfm.decode_step(params, tok, c, cfg)
+                torch.cuda.synchronize()
+            ev = p.key_averages()
+            on_card = sorted((e for e in ev
+                              if e.device_type == DeviceType.CUDA),
+                             key=lambda e: -e.self_device_time_total)
+            out[name] = dict(
+                wall_ms=walls[name],
+                device_us=sum(e.self_device_time_total for e in on_card),
+                device_ops=sum(e.count for e in on_card),
+                host_ops=sum(e.count for e in ev
+                             if e.key.startswith("aten::")),
+                top=[[e.key, e.count, e.self_device_time_total]
+                     for e in on_card[:8]])
+    return out
+
+
+def lm_serve_phase(card: str) -> dict:
+    """Qwen3-30B-A3B at its published widths, 8 of 48 layers, bf16: init
+    at random from a seed, ``serve()`` with the reference's defaults with
+    a bf16 and an int8 KV cache (each after an untimed warm-up call), and
+    the checks: decode at position 63 equals forward there
+    (``LM_DECODE_REL``, at a capacity that drops no token: see the log),
+    every logit finite, the int8 run's first decode step within
+    ``LM_INT8_REL`` of the bf16 run's; then ``lm_decode_profile``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+
+    default_session().cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_peak()
+    cfg = dataclasses.replace(get_arch(LM_ARCH).make_config(),
+                              n_layers=LM_LAYERS)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    with Timer() as t:
+        with torch.inference_mode():
+            params, _ = tfm.init_params(cfg, gen, device=dev)
+        torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in (params["embed"], params["lm_head"],
+                                       params["final_norm"],
+                                       *params["layers"].values()))
+    if n_params != cfg.n_params:
+        raise AssertionError(f"lm: {n_params} parameters, config says "
+                             f"{cfg.n_params}")
+    log(phase="lm.init", arch=LM_ARCH, layers=cfg.n_layers,
+        published_layers=get_arch(LM_ARCH).make_config().n_layers,
+        d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, experts=cfg.moe.n_experts,
+        top_k=cfg.moe.top_k, d_ff_expert=cfg.moe.d_ff_expert,
+        vocab=cfg.vocab, rope_theta=cfg.rope_theta, dtype=str(cfg.dtype),
+        n_params=n_params, gb=n_params * 2 / 1e9, init_seconds=t.seconds)
+    for kv_int8 in (False, True):       # each cache's first use untimed
+        serve(cfg, params=params, batch=LM_SERVE["batch"],
+              prompt_len=LM_SERVE["prompt_len"], gen=2, kv_int8=kv_int8,
+              generator=torch.Generator(device=dev).manual_seed(99))
+    runs = {}
+    for kv_int8 in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        r = serve(cfg, params=params, kv_int8=kv_int8,
+                  generator=torch.Generator(device=dev).manual_seed(1),
+                  **LM_SERVE)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        finite = bool(torch.isfinite(r.prefill_logits).all()
+                      and torch.isfinite(r.step_logits).all())
+        if not finite:
+            raise AssertionError(f"lm serve int8={kv_int8}: a logit is not "
+                                 "finite")
+        if tuple(r.tokens.shape) != (LM_SERVE["batch"], LM_SERVE["gen"]):
+            raise AssertionError(f"lm serve: tokens {tuple(r.tokens.shape)}")
+        runs[kv_int8] = r
+        log(phase="lm.serve", card=card, arch=LM_ARCH, layers=cfg.n_layers,
+            kv_cache="int8" if kv_int8 else "bf16", **LM_SERVE,
+            prefill_tokens=LM_SERVE["batch"] * LM_SERVE["prompt_len"],
+            prefill_capacity=moe_mod._capacity(
+                LM_SERVE["batch"] * LM_SERVE["prompt_len"], cfg.moe.top_k,
+                cfg.moe.n_experts, cfg.moe.capacity_factor),
+            decode_capacity=moe_mod._capacity(
+                LM_SERVE["batch"], cfg.moe.top_k, cfg.moe.n_experts,
+                cfg.moe.capacity_factor),
+            prefill_ms=r.prefill_s * 1e3, prefill_tok_s=r.prefill_tok_s,
+            decode_steps=r.decode_steps,
+            decode_ms_per_step=r.decode_ms_per_step,
+            decode_tok_s=r.decode_tok_s, peak_gb=peak, finite=True,
+            sample=r.tokens[0, :8].tolist())
+    plain, q8 = runs[False], runs[True]
+    if not torch.equal(plain.prompts, q8.prompts):
+        raise AssertionError("lm: the two runs served other prompts")
+    int8_rel = _rel(q8.step_logits, plain.step_logits)
+    if not int8_rel <= LM_INT8_REL:
+        raise AssertionError(f"lm: the int8 cache's first decode step is "
+                             f"{int8_rel} from the bf16 cache's")
+    checks = {}
+    prompts = plain.prompts
+    with torch.inference_mode():
+        for name, cf in (("no_drop", cfg.moe.n_experts / cfg.moe.top_k),
+                         ("served", cfg.moe.capacity_factor)):
+            c2 = dataclasses.replace(
+                cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+            full, _, _ = tfm.forward(params, prompts, c2)
+            _, cache = tfm.prefill(params, prompts[:, :63], c2, max_len=64)
+            step, _ = tfm.decode_step(params, prompts[:, 63:64], cache, c2)
+            checks[name] = dict(
+                capacity_factor=cf, rel=_rel(step, full[:, 63]),
+                max_abs=_max_abs(step, full[:, 63]),
+                ref_rms=float(full[:, 63].float().pow(2).mean().sqrt()),
+                finite=bool(torch.isfinite(step).all()))
+            del full, cache, step
+    if not checks["no_drop"]["rel"] <= LM_DECODE_REL:
+        raise AssertionError(f"lm: decode at position 63 is "
+                             f"{checks['no_drop']} from forward")
+    log(phase="lm.checks", decode_vs_forward=checks,
+        decode_tol=LM_DECODE_REL, int8_vs_bf16_rel=int8_rel,
+        int8_tol=LM_INT8_REL,
+        int8_vs_bf16_max_abs=_max_abs(q8.step_logits, plain.step_logits))
+    log(phase="lm.decode_profile", card=card,
+        **lm_decode_profile(params, cfg, prompts))
+    del params, runs, plain, q8
+    reset_peak()
+    torch.cuda.empty_cache()
+    return checks
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    marks = [("start", t_start)]
+
+    def mark(name: str) -> None:
+        marks.append((name, time.perf_counter()))
+
     card = device_phase()
+    mark("device")
     dev = torch.device("cuda")
+    tune_dir = tempfile.TemporaryDirectory()
+    tune_sweep_phase(os.path.join(tune_dir.name, "tune.json"))
+    mark("tune.sweep")
 
     edge_cases(dev)
+    tile_kernels_edge_cases(dev)
+    mark("edge_cases")
     kron, kron_s = build_graph(KRON)
+    mark("kron.build")
     kron_ig = repro_torch.prepare(kron)
     rows = kernel_phase(kron_ig, adaptive_window(kron))
+    mark("kernels")
     del kron_ig
     torch.cuda.empty_cache()
 
     kron_host: dict = {}
     runs = path_phase(kron, kron_s, rows, results=kron_host,
                       traced=True) + bfs_phase(kron)
+    mark("kron.path_bfs")
     baselines_phase(kron)
+    mark("kron.baselines")
     outlined = {kron.name: outlined_phase(kron, kron_host, traced=True)}
+    mark("kron.outlined")
     profile_phase(kron)
+    mark("kron.profile")
+    tune_runs_phase(kron, kron_host)
+    mark("tune.runs")
     default_session().cache.clear()
     torch.cuda.empty_cache()
     dist_runs, ctx = dist_phase(kron, [dev] * KRON_SHARDS, DIST_RUNS,
@@ -2214,16 +2778,24 @@ def main() -> int:
                                 traced=True)
     runs += dist_runs
     rows["fused_step"] = fused_step_row(**ctx)
+    mark("kron.dist")
     del ctx
     default_session().cache.clear()
     torch.cuda.empty_cache()
     road, road_s = build_graph(ROAD)
+    mark("road.build")
     road_host: dict = {}
     runs += path_phase(road, road_s, results=road_host)
+    mark("road.path")
     outlined[road.name] = outlined_phase(road, road_host)
+    mark("road.outlined")
     default_session().cache.clear()
     torch.cuda.empty_cache()
+    tile_check_phase(road)
+    mark("tune.road_tiles")
+    torch.cuda.empty_cache()
     runs += dist_phase(road, None, DIST_RUNS, boundary=DIST_RUNS)[0]
+    mark("road.dist")
     default_session().cache.clear()
     torch.cuda.empty_cache()
     totals = {k: sum(c[k] for c in runs) for k in _build.SOURCES}
@@ -2232,21 +2804,30 @@ def main() -> int:
 
     fused_rule(outlined)
     card_vs_cpu_phase()
+    mark("card_vs_cpu")
     big = [(kron, kron_host[("ipgc", False)]),
            (road, road_host[("ipgc", False)])]
     del kron_host, road_host
     batch = batch_phase(big)
+    mark("batch")
     del big, kron, road
+    lm_card_vs_cpu_phase()
+    mark("lm.card_vs_cpu")
+    lm_serve_phase(card)
+    mark("lm.serve")
+    tune_dir.cleanup()
     for name, row in rows.items():
         row["launches"] = totals[SOURCES[name][2]]
         row["batch_launches"] = batch[SOURCES[name][2]]
         row["lane_rows_checked"] = [r for k, r in LANE_CHECKS if k == name]
+        row["tile_ms"] = TILE_MS.get(name)
         row["outlined_launches"] = sum(
             o["launches"][SOURCES[name][2]] for by in outlined.values()
             for o in by.values())
     reset_peak()
     log(phase="done", seconds=time.perf_counter() - t_start,
-        peak_mem_gb=_peak_bytes / 2**30)
+        peak_mem_gb=_peak_bytes / 2**30,
+        phase_seconds={b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])})
     print(card, flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

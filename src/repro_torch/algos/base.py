@@ -2,7 +2,8 @@
 
 The step contract the Pipe drives (shared with the IPGC steps):
 
-    step(ig, colors, aux, wl, *, window, force_hub) -> (colors, aux, wl)
+    step(ig, colors, aux, wl, *, window, force_hub, tile_rows)
+        -> (colors, aux, wl)
 
   * ``ig``     — the prepared device graph (``core.ipgc.IPGCGraph``).
   * ``colors`` — int32[N+1] color vector (slot N = PAD sentinel).
@@ -11,6 +12,9 @@ The step contract the Pipe drives (shared with the IPGC steps):
   * ``wl``     — the dual-representation persistent ``Worklist``; every
                  step (dense AND sparse) re-emits both representations so
                  mode switches stay free — the paper's invariant.
+  * ``tile_rows`` — the row kernels' rows a block, resolved once per run
+                 (``kernels.tune.resolve_tile_rows``); None is their
+                 default block. It never changes a result.
 
 Shard-safety declaration (DESIGN.md §7): an algorithm that sets
 ``shard_safe=True`` promises that its ``make_dist_steps`` returns steps
@@ -90,13 +94,15 @@ class Algorithm:
 
     def make_dist_steps(self, ig: ipgc.IPGCGraph, mesh, *, window: int,
                         fused: bool, exchange: str = "dense", boundary=None,
-                        thresh: "int | None" = None):
+                        thresh: "int | None" = None,
+                        tile_rows: "int | None" = None):
         """(dense, sparse) distributed steps over ``mesh`` (a tuple of
         devices, one per shard) on the prepared, partitioned graph ``ig``;
         only called when ``shard_safe``. ``exchange``/``boundary``/
         ``thresh`` select the cross-shard color publication (DESIGN.md
         §13): with ``exchange != "dense"`` the steps take per-shard color
-        views and a ``bcap`` keyword and return an extra ``xstats``."""
+        views and a ``bcap`` keyword and return an extra ``xstats``.
+        ``tile_rows`` is the row kernels' rows a block."""
         raise NotImplementedError(
             f"algorithm {self.name!r} is not shard-safe: "
             f"{self.shard_unsafe_reason or 'no distributed steps'}")

@@ -23,10 +23,11 @@ class IPGC(Algorithm):
 
     def make_dist_steps(self, ig, mesh, *, window: int, fused: bool,
                         exchange: str = "dense", boundary=None,
-                        thresh: "int | None" = None):
+                        thresh: "int | None" = None,
+                        tile_rows: "int | None" = None):
         from repro_torch.core.distributed import (make_dist_dense_step,
                                                   make_dist_sparse_step)
         kw = dict(window=window, fused=fused, exchange=exchange,
-                  boundary=boundary, thresh=thresh)
+                  boundary=boundary, thresh=thresh, tile_rows=tile_rows)
         return (make_dist_dense_step(ig, mesh, **kw),
                 make_dist_sparse_step(ig, mesh, **kw))

@@ -98,7 +98,8 @@ def _decide(pend, pr, nbr_max, nbr_min, rnd, cu):
 
 
 def _jpl_dense(ig: ipgc.IPGCGraph, colors: torch.Tensor, ids: torch.Tensor,
-               rnd: torch.Tensor, wl: Worklist, force_hub: "bool | None"
+               rnd: torch.Tensor, wl: Worklist, force_hub: "bool | None",
+               tile_rows: "int | None" = None
                ) -> tuple[torch.Tensor, Worklist]:
     """A topology-driven JPL round over all N rows: row ``u`` draws
     ``round_hash(ids[u], rnd)`` and takes colors ``2 rnd`` / ``2 rnd + 1``
@@ -111,7 +112,7 @@ def _jpl_dense(ig: ipgc.IPGCGraph, colors: torch.Tensor, ids: torch.Tensor,
     pr_ext = torch.cat([pr, pr.new_full((1,), -1)])
 
     npr = pr_ext[ig.ell_idx]               # (N, K); pad lanes -> -1
-    nbr_max, nbr_min = ops.jpl_extrema(npr)
+    nbr_max, nbr_min = ops.jpl_extrema(npr, tile_rows=tile_rows)
     if ipgc._has_hubs(ig, force_hub):
         tpr = torch.where(ig.tail_valid, pr_ext[ig.tail_dst], -1)
         hmax, hmin = _hub_extrema(ig, tpr)
@@ -129,18 +130,20 @@ def _jpl_dense(ig: ipgc.IPGCGraph, colors: torch.Tensor, ids: torch.Tensor,
 
 def jpl_dense_step(ig: ipgc.IPGCGraph, colors: torch.Tensor,
                    rnd: torch.Tensor, wl: Worklist, *, window: int = 128,
-                   force_hub: "bool | None" = None
+                   force_hub: "bool | None" = None,
+                   tile_rows: "int | None" = None
                    ) -> tuple[torch.Tensor, torch.Tensor, Worklist]:
     """One topology-driven JPL round over all N rows (``window`` is part of
     the protocol signature; JPL has no mex window and ignores it)."""
     ids = torch.arange(ig.n_nodes, dtype=torch.int32, device=colors.device)
-    colors2, wl2 = _jpl_dense(ig, colors, ids, rnd, wl, force_hub)
+    colors2, wl2 = _jpl_dense(ig, colors, ids, rnd, wl, force_hub, tile_rows)
     return colors2, rnd + 1, wl2
 
 
 def jpl_lane_dense_step(ig: ipgc.IPGCGraph, colors: torch.Tensor,
                         rnd: torch.Tensor, wl: Worklist, *, window: int = 128,
-                        force_hub: "bool | None" = None
+                        force_hub: "bool | None" = None,
+                        tile_rows: "int | None" = None
                         ) -> tuple[torch.Tensor, torch.Tensor, Worklist]:
     """``jpl_dense_step`` on each lane of a flattened lane group
     (``exec/batch.py``): ``rnd`` holds one round per lane (lanes admitted
@@ -152,13 +155,15 @@ def jpl_lane_dense_step(ig: ipgc.IPGCGraph, colors: torch.Tensor,
     ids = torch.arange(ig.n_nodes, dtype=torch.int32, device=colors.device)
     ids.remainder_(n_pad)
     rows_rnd = rnd[:, None].expand(b, n_pad).reshape(-1)
-    colors2, wl2 = _jpl_dense(ig, colors, ids, rows_rnd, wl, force_hub)
+    colors2, wl2 = _jpl_dense(ig, colors, ids, rows_rnd, wl, force_hub,
+                              tile_rows)
     return colors2, rnd + 1, wl2
 
 
 def jpl_sparse_step(ig: ipgc.IPGCGraph, colors: torch.Tensor,
                     rnd: torch.Tensor, wl: Worklist, *, window: int = 128,
-                    force_hub: "bool | None" = None
+                    force_hub: "bool | None" = None,
+                    tile_rows: "int | None" = None
                     ) -> tuple[torch.Tensor, torch.Tensor, Worklist]:
     """One data-driven JPL round over the gathered C-item worklist.
 
@@ -181,7 +186,7 @@ def jpl_sparse_step(ig: ipgc.IPGCGraph, colors: torch.Tensor,
     ell_rows = torch.where(valid[:, None], ig.ell_idx[safe], n)    # (C, K)
     nc = ipgc._gather_neighbor_colors(colors, ell_rows)
     npr = torch.where(nc == NO_COLOR, round_hash(ell_rows, rnd), -1)
-    nbr_max, nbr_min = ops.jpl_extrema(npr)
+    nbr_max, nbr_min = ops.jpl_extrema(npr, tile_rows=tile_rows)
     if ipgc._has_hubs(ig, force_hub):
         tc = colors[ig.tail_dst]
         tpr = torch.where(ig.tail_valid & (tc == NO_COLOR),
@@ -221,7 +226,8 @@ def jpl_sparse_step(ig: ipgc.IPGCGraph, colors: torch.Tensor,
 
 def make_jpl_dist_steps(ig: ipgc.IPGCGraph, mesh, *,
                         exchange: str = "dense", boundary=None,
-                        thresh: "int | None" = None):
+                        thresh: "int | None" = None,
+                        tile_rows: "int | None" = None):
     """(dense_round, sparse_round) over the mesh, equal to
     ``jpl_dense_step``/``jpl_sparse_step`` on the partitioned graph; the
     state is ``core.distributed.shard_state``'s. ``exchange``,
@@ -238,7 +244,7 @@ def make_jpl_dist_steps(ig: ipgc.IPGCGraph, mesh, *,
     def nbr_extrema(sig, colors, rnd, ell_rows, slot, valid=None):
         nc = colors[ell_rows]
         npr = torch.where(nc == NO_COLOR, round_hash(ell_rows, rnd), -1)
-        nbr_max, nbr_min = ops.jpl_extrema(npr)
+        nbr_max, nbr_min = ops.jpl_extrema(npr, tile_rows=tile_rows)
         if nh > 0:
             tc = colors[sig.tail_dst]
             tpr = torch.where(sig.tail_valid & (tc == NO_COLOR),
@@ -331,11 +337,13 @@ class JPL(Algorithm):
 
     def make_dist_steps(self, ig, mesh, *, window: int, fused: bool,
                         exchange: str = "dense", boundary=None,
-                        thresh: "int | None" = None):
+                        thresh: "int | None" = None,
+                        tile_rows: "int | None" = None):
         # window and fused are protocol arguments JPL ignores (no mex
         # window, one step family), as in the host steps
         return make_jpl_dist_steps(ig, mesh, exchange=exchange,
-                                   boundary=boundary, thresh=thresh)
+                                   boundary=boundary, thresh=thresh,
+                                   tile_rows=tile_rows)
 
     def finalize(self, colors):
         return _compact_palette(colors)

@@ -429,7 +429,8 @@ def _padded(sh: Shard, block: torch.Tensor, size: int) -> torch.Tensor:
 # dense (topology-driven) distributed step
 # ---------------------------------------------------------------------------
 
-def _dense_fused_local(sh: Shard, colors, base_l, active, window: int):
+def _dense_fused_local(sh: Shard, colors, base_l, active, window: int,
+                       tile_rows: "int | None"):
     ig = sh.ig
     n = ig.n_nodes
     cu = colors[sh.lo:sh.hi]
@@ -446,7 +447,7 @@ def _dense_fused_local(sh: Shard, colors, base_l, active, window: int):
     # the kernel gathers the shard's neighbours itself (rows None: all)
     lose, first, has = ipgc._fused_rows(ig, colors, None, base_l, cu, pu,
                                         sh.row_ids, pending, hub_tables,
-                                        window)
+                                        window, tile_rows)
     need = lose | (active & (cu < 0))
     new_c = torch.where(need & has, base_l + first,
                         torch.where(lose, NO_COLOR, cu))
@@ -455,7 +456,8 @@ def _dense_fused_local(sh: Shard, colors, base_l, active, window: int):
     return _Writes(None, cu, new_c), new_base, need
 
 
-def _dense_assign_local(sh: Shard, colors, base_l, active, window: int):
+def _dense_assign_local(sh: Shard, colors, base_l, active, window: int,
+                        tile_rows: "int | None"):
     ig = sh.ig
     n = ig.n_nodes
     nc = colors[ig.ell_idx]
@@ -465,15 +467,16 @@ def _dense_assign_local(sh: Shard, colors, base_l, active, window: int):
         extra = ipgc._hub_forbidden(ig, colors, base_pad, window)[ig.hub_slot]
     cu = colors[sh.lo:sh.hi]
     new_c, new_base, newly = ipgc._mex_rows(nc, base_l, active, cu, extra,
-                                            window)
+                                            window, tile_rows)
     # exchange 1 publishes the speculative colors of the owned rows
     return _Writes(None, cu, torch.where(active, new_c, cu)), new_base, newly
 
 
-def _dense_resolve_local(sh: Shard, colors2, active, newly):
+def _dense_resolve_local(sh: Shard, colors2, active, newly,
+                         tile_rows: "int | None"):
     ig = sh.ig
     n = ig.n_nodes
-    lose = ipgc._lose_rows(ig, None, sh.row_ids, colors2, newly)
+    lose = ipgc._lose_rows(ig, None, sh.row_ids, colors2, newly, tile_rows)
     if ig.n_hub > 0:
         # a local scatter: owned slots only read owned tail_src rows
         newly_g = _padded(sh, newly, n + 1)
@@ -486,7 +489,8 @@ def _dense_resolve_local(sh: Shard, colors2, active, newly):
 
 def make_dist_dense_step(ig: ipgc.IPGCGraph, mesh, *, window: int = 128,
                          fused: bool = False, exchange: str = "dense",
-                         boundary=None, thresh: "int | None" = None):
+                         boundary=None, thresh: "int | None" = None,
+                         tile_rows: "int | None" = None):
     """Build the dense distributed step over the mesh.
 
     ``ig`` is the prepared, partitioned graph. Returns
@@ -504,7 +508,8 @@ def make_dist_dense_step(ig: ipgc.IPGCGraph, mesh, *, window: int = 128,
     is ``step(views, base, wl, *, bcap) -> (views, base, wl, xstats)``
     (see ``_Publisher``). ``boundary`` is the partition's
     ``graphs.partition.BoundaryInfo``, ``thresh`` the changed-count
-    threshold of ``policy.exchange_threshold``.
+    threshold of ``policy.exchange_threshold``. ``tile_rows`` is the row
+    kernels' rows a block (None: their default block).
     """
     shards = shard_graph(ig, mesh)
     n = ig.n_nodes
@@ -514,16 +519,16 @@ def make_dist_dense_step(ig: ipgc.IPGCGraph, mesh, *, window: int = 128,
         masks = [b.mask for b in wl.blocks]
         if fused:
             writes, new_base, still = zip(*(
-                _dense_fused_local(sh, c, b, m, window)
+                _dense_fused_local(sh, c, b, m, window, tile_rows)
                 for sh, c, b, m in zip(shards, colors, base, masks)))
             colors_out = pub(colors, writes)
         else:
             writes, new_base, newly = zip(*(
-                _dense_assign_local(sh, c, b, m, window)
+                _dense_assign_local(sh, c, b, m, window, tile_rows)
                 for sh, c, b, m in zip(shards, colors, base, masks)))
             colors2 = pub(colors, writes)
             undos, still = zip(*(
-                _dense_resolve_local(sh, c, m, nw)
+                _dense_resolve_local(sh, c, m, nw, tile_rows)
                 for sh, c, m, nw in zip(shards, colors2, masks, newly)))
             colors_out = pub(colors2, undos)
         # the owned rows still active, as global ids (pad N), through the
@@ -588,7 +593,8 @@ def _sparse_rows(sh: Shard, colors, items_l, base_l=None, window: int = 0,
                        ell_rows=ell_rows, slot=slot, extra=extra)
 
 
-def _sparse_fused_local(sh: Shard, colors, base_l, items_l, window: int):
+def _sparse_fused_local(sh: Shard, colors, base_l, items_l, window: int,
+                        tile_rows: "int | None"):
     ig = sh.ig
     n = ig.n_nodes
     r = _sparse_rows(sh, colors, items_l, base_l, tiles=False)
@@ -605,7 +611,7 @@ def _sparse_fused_local(sh: Shard, colors, base_l, items_l, window: int):
     # the kernel gathers the items' neighbours itself (pad lanes: row blk)
     lose, first, has = ipgc._fused_rows(ig, colors, r.rows, r.base_rows,
                                         r.cu, pu, r.ids, pending, hub_tables,
-                                        window)
+                                        window, tile_rows)
     need = lose | (r.valid & (r.cu < 0))
     new_c = torch.where(need & has, r.base_rows + first,
                         torch.where(lose, NO_COLOR, r.cu))
@@ -616,21 +622,23 @@ def _sparse_fused_local(sh: Shard, colors, base_l, items_l, window: int):
     return writes, r, new_base_rows, need
 
 
-def _sparse_assign_local(sh: Shard, colors, base_l, items_l, window: int):
+def _sparse_assign_local(sh: Shard, colors, base_l, items_l, window: int,
+                         tile_rows: "int | None"):
     r = _sparse_rows(sh, colors, items_l, base_l, window)
     nc = colors[r.ell_rows]
     new_c, new_base_rows, newly = ipgc._mex_rows(nc, r.base_rows, r.valid,
-                                                 r.cu, r.extra, window)
+                                                 r.cu, r.extra, window,
+                                                 tile_rows)
     writes = _Writes(r.ids, r.cu, torch.where(r.valid, new_c, r.cu))
     return writes, r, new_base_rows, newly
 
 
 def _sparse_resolve_local(sh: Shard, colors2, items_l, r: _SparseRows,
-                          newly):
+                          newly, tile_rows: "int | None"):
     ig = sh.ig
     n = ig.n_nodes
     # the shard's ELL rows of the items, pad lanes past its block
-    lose = ipgc._lose_rows(ig, r.rows, r.ids, colors2, newly)
+    lose = ipgc._lose_rows(ig, r.rows, r.ids, colors2, newly, tile_rows)
     if ig.n_hub > 0:
         newly_full = ipgc._set_rows(
             torch.zeros(n + 1, dtype=torch.bool, device=sh.device),
@@ -657,15 +665,16 @@ def _sparse_maintain(sh: Shard, block: Worklist, base_l, r: _SparseRows,
 
 def make_dist_sparse_step(ig: ipgc.IPGCGraph, mesh, *, window: int = 128,
                           fused: bool = False, exchange: str = "dense",
-                          boundary=None, thresh: "int | None" = None):
+                          boundary=None, thresh: "int | None" = None,
+                          tile_rows: "int | None" = None):
     """Build the data-driven distributed step over shard-local worklists.
 
     Each shard gathers only its own compacted items block (global ids it
     owns, padded with N), so per-iteration cost tracks the shard's share
     of the active set, not its block size. The color exchange is the same
     as the dense step's; the worklist filter and the ``mask`` write-back
-    stay O(C) and shard-local. ``exchange``, ``boundary`` and ``thresh``
-    as in ``make_dist_dense_step``.
+    stay O(C) and shard-local. ``exchange``, ``boundary``, ``thresh`` and
+    ``tile_rows`` as in ``make_dist_dense_step``.
     """
     shards = shard_graph(ig, mesh)
     publisher = _Publisher(mesh, shards, ig.n_nodes, exchange, boundary,
@@ -675,16 +684,16 @@ def make_dist_sparse_step(ig: ipgc.IPGCGraph, mesh, *, window: int = 128,
         items = [b.items for b in wl.blocks]
         if fused:
             writes, rows, new_base_rows, still = zip(*(
-                _sparse_fused_local(sh, c, b, it, window)
+                _sparse_fused_local(sh, c, b, it, window, tile_rows)
                 for sh, c, b, it in zip(shards, colors, base, items)))
             colors_out = pub(colors, writes)
         else:
             writes, rows, new_base_rows, newly = zip(*(
-                _sparse_assign_local(sh, c, b, it, window)
+                _sparse_assign_local(sh, c, b, it, window, tile_rows)
                 for sh, c, b, it in zip(shards, colors, base, items)))
             colors2 = pub(colors, writes)
             undos, still = zip(*(
-                _sparse_resolve_local(sh, c, it, r, nw)
+                _sparse_resolve_local(sh, c, it, r, nw, tile_rows)
                 for sh, c, it, r, nw in zip(shards, colors2, items, rows,
                                             newly)))
             colors_out = pub(colors2, undos)

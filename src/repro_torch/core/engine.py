@@ -138,6 +138,8 @@ def color(
     exchange: str = "dense",       # dist-* modes: color publication path
     devices=None,                  # dist-* modes: one device per shard
     trace=None,                    # True / obs.Trace: return a RunReport
+    tile_rows: "int | str | None" = "auto",  # row kernels' rows a block;
+    #                                "auto" = tuned on CUDA, None on CPU
 ) -> ColoringResult:
     """Color ``g`` (a host ``Graph``, or an ``IPGCGraph`` prepared on
     ``device``) with the hybrid Pipe on the process-default session of
@@ -150,12 +152,14 @@ def color(
     ``exchange`` is the dist Pipe's color publication (``"dense"``,
     ``"boundary"`` or ``"auto"``, DESIGN.md §13). ``trace`` (True or an
     ``obs.Trace``) returns a ``RunReport`` instead of the bare result
-    (``Session.run``)."""
+    (``Session.run``). ``tile_rows`` is the row kernels' rows a block
+    (``kernels.tune.resolve_tile_rows``); it never changes a result."""
     from repro_torch.exec import default_session, spec_for
     spec = spec_for(mode=mode, algo=algo, h=h, window=window,
                     bucket_ratio=bucket_ratio, max_iter=max_iter,
                     priority=priority, fused=fused, outline=outline,
-                    layout=layout, n_shards=n_shards, exchange=exchange)
+                    layout=layout, n_shards=n_shards, exchange=exchange,
+                    tile_rows=tile_rows)
     if device is None and devices is not None:
         device = list(devices)[0]
     return default_session(device).run(spec, g, policy=policy,
@@ -184,6 +188,7 @@ def color_outlined_hybrid(
     layout: "str | object | None" = None,
     device=None,
     trace=None,
+    tile_rows: "int | str | None" = "auto",
 ) -> ColoringResult:
     """Outlined hybrid Pipe: at most ``len(caps) + 1`` host dispatches.
 
@@ -196,14 +201,14 @@ def color_outlined_hybrid(
     rebuilt per chunk from the dense/sparse trip counters on the device
     (exact for monotone policies). AutoTuned policies refresh their
     threshold between chunks (``observe_chunk``). ``fused=None`` resolves
-    per device type (``exec.session.OUTLINED_FUSED``). ``trace`` as in
-    ``color``.
+    per device type (``exec.session.OUTLINED_FUSED``). ``trace`` and
+    ``tile_rows`` as in ``color``.
     """
     from repro_torch.exec import ExecutionSpec, default_session
     spec = ExecutionSpec(
         regime="outlined", mode=mode, algo=algo, layout=layout, h=h,
         window=window, bucket_ratio=bucket_ratio, max_iter=max_iter,
-        priority=priority, fused=fused)
+        priority=priority, fused=fused, tile_rows=tile_rows)
     return default_session(device).run(spec, g, policy=policy,
                                        collect_tti=collect_tti, trace=trace)
 

@@ -406,11 +406,13 @@ def _mex_from_forbidden(forb: torch.Tensor, active: torch.Tensor,
 
 def _mex_rows(nc: torch.Tensor, base_rows: torch.Tensor,
               active: torch.Tensor, colors_rows: torch.Tensor,
-              extra_forb: "torch.Tensor | None", window: int):
+              extra_forb: "torch.Tensor | None", window: int,
+              tile_rows: "int | None" = None):
     """Row-wise windowed mex: the ``mex_window`` kernel, then the
     new-color/base selection of the active rows."""
     LAUNCH_COUNTS["mex"] += 1
-    first = ops.mex_window(nc, base_rows, extra_forb, window)
+    first = ops.mex_window(nc, base_rows, extra_forb, window,
+                           tile_rows=tile_rows)
     has = first >= 0
     new_colors = torch.where(active & has, base_rows + first, colors_rows)
     new_base = torch.where(active & ~has, base_rows + window, base_rows)
@@ -419,7 +421,8 @@ def _mex_rows(nc: torch.Tensor, base_rows: torch.Tensor,
 
 def _lose_rows(ig: IPGCGraph, rows: "torch.Tensor | None",
                row_ids: torch.Tensor, colors: torch.Tensor,
-               newly: torch.Tensor) -> torch.Tensor:
+               newly: torch.Tensor, tile_rows: "int | None" = None
+               ) -> torch.Tensor:
     """Row u loses iff it conflicts (the ``conflict`` kernel, which
     gathers the neighbours of ``ig.ell_idx[rows]`` itself; ``rows`` None is
     every ELL row, a row >= the ELL's row count is empty). Only
@@ -430,12 +433,12 @@ def _lose_rows(ig: IPGCGraph, rows: "torch.Tensor | None",
     cu = colors[row_ids]
     pu = ig.priority[row_ids]
     return ops.conflict(colors, ig.priority, ig.ell_idx, rows, cu, pu,
-                        row_ids, newly)
+                        row_ids, newly, tile_rows=tile_rows)
 
 
 def _fused_compact_rows(ig: IPGCGraph, colors, rows, base_rows, cu, pu,
                         ids, active, pending, hub_tables, window: int,
-                        capacity: int):
+                        capacity: int, tile_rows: "int | None" = None):
     """One pass (DESIGN.md §10): resolve + windowed mex + new-color/base
     selection + compacted worklist emission, the neighbours of
     ``ig.ell_idx[rows]`` gathered inside the ``fused_compact`` kernel
@@ -453,11 +456,13 @@ def _fused_compact_rows(ig: IPGCGraph, colors, rows, base_rows, cu, pu,
     return ops.fused_compact(colors, ig.priority, ig.ell_idx, rows,
                              base_rows, cu, pu, ids, active, pending,
                              hub_forb, hub_lose, hub_slot, window,
-                             capacity=capacity, n_sentinel=ig.n_nodes)
+                             capacity=capacity, n_sentinel=ig.n_nodes,
+                             tile_rows=tile_rows)
 
 
 def _fused_rows(ig: IPGCGraph, colors, rows, base_rows, cu, pu, ids,
-                pending, hub_tables, window: int):
+                pending, hub_tables, window: int,
+                tile_rows: "int | None" = None):
     """Resolve + windowed mex without emission: ``(lose, first, has)``,
     the neighbours of ``ig.ell_idx[rows]`` gathered inside the
     ``fused_step`` kernel (``rows`` None is every ELL row, a row >= the
@@ -473,7 +478,8 @@ def _fused_rows(ig: IPGCGraph, colors, rows, base_rows, cu, pu, ids,
     hub_slot = None if hub_tables is None else ig.hub_slot
     lose, first = ops.fused_step(colors, ig.priority, ig.ell_idx, rows,
                                  base_rows, cu, pu, ids, pending, hub_forb,
-                                 hub_lose, hub_slot, window)
+                                 hub_lose, hub_slot, window,
+                                 tile_rows=tile_rows)
     return lose, first, first >= 0
 
 
@@ -549,7 +555,8 @@ def _csr_step(ig: IPGCGraph, colors, base, wl: Worklist, *, window: int,
 
 def dense_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
                wl: Worklist, *, window: int = 128,
-               force_hub: "bool | None" = None
+               force_hub: "bool | None" = None,
+               tile_rows: "int | None" = None
                ) -> tuple[torch.Tensor, torch.Tensor, Worklist]:
     if ig.layout_kind == "csr-segment":
         return _csr_step(ig, colors, base, wl, window=window, fused=False,
@@ -564,11 +571,11 @@ def dense_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
     extra = (_hub_forbidden(ig, colors, base, window)[ig.hub_slot]
              if has_hubs else None)
     new_c, new_base, newly = _mex_rows(nc, base, active, colors[:n], extra,
-                                       window)
+                                       window, tile_rows)
     colors2 = torch.cat([new_c, colors[n:]])
 
     # --- resolve (uncolor exactly one endpoint per conflict edge) ---
-    lose = _lose_rows(ig, None, row_ids, colors2, newly)
+    lose = _lose_rows(ig, None, row_ids, colors2, newly, tile_rows)
     if has_hubs:
         newly_full = torch.cat([newly, newly.new_zeros(1)])
         lose = lose | _hub_lose(ig, colors2, newly_full)[ig.hub_slot]
@@ -587,7 +594,8 @@ def dense_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
 
 def sparse_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
                 wl: Worklist, *, window: int = 128,
-                force_hub: "bool | None" = None
+                force_hub: "bool | None" = None,
+                tile_rows: "int | None" = None
                 ) -> tuple[torch.Tensor, torch.Tensor, Worklist]:
     if ig.layout_kind == "csr-segment":
         return _csr_step(ig, colors, base, wl, window=window, fused=False,
@@ -606,13 +614,14 @@ def sparse_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
     extra = (_hub_forbidden(ig, colors, base, window)[ig.hub_slot[safe]]
              if has_hubs else None)
     new_c, new_base_rows, newly = _mex_rows(nc, base_rows, valid,
-                                            colors[safe], extra, window)
+                                            colors[safe], extra, window,
+                                            tile_rows)
     colors2 = _set_rows(colors, target, torch.where(valid, new_c, PAD_COLOR))
     colors2[n:].fill_(PAD_COLOR)
     base2 = _set_rows_drop(base, target, new_base_rows)
 
     # --- resolve ---
-    lose = _lose_rows(ig, items, target, colors2, newly)
+    lose = _lose_rows(ig, items, target, colors2, newly, tile_rows)
     if has_hubs:
         newly_full = _set_rows(torch.zeros(n + 1, dtype=torch.bool,
                                            device=colors.device),
@@ -645,7 +654,8 @@ def sparse_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
 
 def fused_dense_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
                      wl: Worklist, *, window: int = 128,
-                     force_hub: "bool | None" = None
+                     force_hub: "bool | None" = None,
+                     tile_rows: "int | None" = None
                      ) -> tuple[torch.Tensor, torch.Tensor, Worklist]:
     if ig.layout_kind == "csr-segment":
         return _csr_step(ig, colors, base, wl, window=window, fused=True,
@@ -664,14 +674,15 @@ def fused_dense_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
     # the one gather, inside the kernel
     new_c, new_base, still, items, count = _fused_compact_rows(
         ig, colors, None, base, cu, pu, row_ids, active, pending,
-        hub_tables, window, wl.capacity)
+        hub_tables, window, wl.capacity, tile_rows)
     colors2 = torch.cat([new_c, colors[n:]])
     return colors2, new_base, Worklist(mask=still, items=items, count=count)
 
 
 def fused_sparse_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
                       wl: Worklist, *, window: int = 128,
-                      force_hub: "bool | None" = None
+                      force_hub: "bool | None" = None,
+                      tile_rows: "int | None" = None
                       ) -> tuple[torch.Tensor, torch.Tensor, Worklist]:
     if ig.layout_kind == "csr-segment":
         return _csr_step(ig, colors, base, wl, window=window, fused=True,
@@ -697,7 +708,7 @@ def fused_sparse_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
     # the one gather, inside the kernel
     new_c, new_base_rows, still, new_items, count = _fused_compact_rows(
         ig, colors, items, base_rows, cu, pu, ids, valid, pending,
-        hub_tables, window, items.shape[0])
+        hub_tables, window, items.shape[0], tile_rows)
 
     colors2 = _set_rows(colors, ids, torch.where(valid, new_c, PAD_COLOR))
     colors2[n:].fill_(PAD_COLOR)

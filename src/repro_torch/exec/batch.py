@@ -385,8 +385,8 @@ class LaneState:
 
     # -- trips ---------------------------------------------------------------
 
-    def _trip(self, buf: TripState, step, window: int,
-              force_hub: bool) -> None:
+    def _trip(self, buf: TripState, step, window: int, force_hub: bool,
+              tile_rows: "int | None") -> None:
         """One batched trip on the buffers ``buf`` (see the module doc)."""
         b, n = self.b, self.ig.n_nodes
         ctr, lim = buf.ctr, buf.lim
@@ -396,7 +396,8 @@ class LaneState:
         colors, aux, wl = step(self.ig, buf.colors, buf.aux,
                                Worklist(mask=buf.mask, items=buf.items,
                                         count=ctr[COUNT]),
-                               window=window, force_hub=force_hub)
+                               window=window, force_hub=force_hub,
+                               tile_rows=tile_rows)
         mask = _freeze_inert(alive, wl.mask, buf.mask)
         buf.colors[:n].view(b, -1).copy_(
             _freeze_inert(alive, colors[:n], buf.colors[:n]))
@@ -407,14 +408,17 @@ class LaneState:
         ctr[IT].add_(alive.to(torch.int32))
         ctr[NS].add_((alive & ~dense).to(torch.int32))
 
-    def run(self, chunk: int, *, step, window: int, force_hub: bool) -> int:
+    def run(self, chunk: int, *, step, window: int, force_hub: bool,
+            tile_rows: "int | None" = None) -> int:
         """One chunk: trips while a lane is alive and fewer than ``chunk``
-        have run, one counter read after each. Returns the trips run."""
+        have run, one counter read after each. Returns the trips run. The
+        captured trips are keyed by the step and its static arguments,
+        ``tile_rows`` (the row kernels' rows a block) among them."""
         CHUNK_COUNTS["chunks"] += 1
         trips = 0
         while trips < chunk and self.alive().any():
             if self.cuda:
-                key = (step, window, force_hub)
+                key = (step, window, force_hub, tile_rows)
                 trip = self.trips.get(key)
                 if trip is None:
                     ensure_fits(dict(trip=trip_bytes(self.sc, self.b, step)),
@@ -422,11 +426,12 @@ class LaneState:
                                 f"the trip of a lane group of {self.b} x "
                                 f"{self.sc}")
                     trip = self.trips[key] = capture_trip(
-                        lambda s: self._trip(s, step, window, force_hub),
+                        lambda s: self._trip(s, step, window, force_hub,
+                                             tile_rows),
                         self.buf, pool=self.pool, stream=self.stream)
                 replay(trip)
             else:
-                self._trip(self.buf, step, window, force_hub)
+                self._trip(self.buf, step, window, force_hub, tile_rows)
             trips += 1
             self.host = np.array(self.buf.ctr.tolist(), dtype=np.int64)
             CHUNK_COUNTS["reads"] += 1
@@ -538,6 +543,7 @@ def _run_batch_pinned(session, spec, alg, graphs, *, map_to_original):
     fused = alg.resolve_fused(spec.fused, default=False)  # host-loop default
     step = alg.lane_step(fused)
     force_hub = ipgc.force_hub_enabled()
+    tile_rows = spec.explicit_tile_rows()
     pol = make_policy(spec.mode, spec.h)
 
     prepared = [session._prepare(spec, g, alg)[:2] for g in graphs]
@@ -600,7 +606,7 @@ def _run_batch_pinned(session, spec, alg, graphs, *, map_to_original):
                                       window=window, kind=kind), \
                     Timer() as t:
                 st.run(spec.max_iter, step=step, window=window,
-                       force_hub=force_hub)
+                       force_hub=force_hub, tile_rows=tile_rows)
             counts_left = st.host[COUNT][:len(idxs)]
             if int(counts_left.sum()) != 0:
                 raise RuntimeError(

@@ -155,7 +155,10 @@ class ChunkRunner:
     ``alg.step_fns(fused)`` gives the steps; ``window`` and ``force_hub``
     are fixed per runner, as they are per chunk program in the reference.
     ``capacity`` is the largest bucket (``caps[0]``). A runner serves one
-    run at a time; ``reset`` starts a run.
+    run at a time; ``reset`` starts a run at a ``tile_rows`` (the row
+    kernels' rows a block), which keys the captured trips with the bucket
+    and the trip kind: a trip captured at one tile is never replayed at
+    another.
     """
 
     def __init__(self, ig, alg, *, fused: bool, window: int,
@@ -174,7 +177,8 @@ class ChunkRunner:
         self.cuda = ig.device.type == "cuda"
         if not self.cuda and ig.device.type != "cpu":
             raise ValueError(f"no chunk runner for tensors on {ig.device}")
-        self.trips: dict[tuple[int, bool], _Trip] = {}
+        self.tile_rows: "int | None" = None
+        self.trips: dict[tuple[int, bool, "int | None"], _Trip] = {}
         self.pool = self.stream = None
         if self.cuda:
             self.pool = torch.cuda.graph_pool_handle()
@@ -184,10 +188,12 @@ class ChunkRunner:
     def colors(self) -> torch.Tensor:
         return self.state.colors
 
-    def reset(self) -> None:
+    def reset(self, tile_rows: "int | None" = None) -> None:
         """Load the algorithm's initial state into the buffers: everything
         active, the items padded with the ``N`` sentinel to the capacity
-        (``resize_items`` to ``caps[0]``), count ``N`` and no trips."""
+        (``resize_items`` to ``caps[0]``), count ``N`` and no trips; the
+        run's trips take ``tile_rows``."""
+        self.tile_rows = tile_rows
         n = self.ig.n_nodes
         colors, aux, wl = self.alg.init_state(self.ig)
         s = self.state
@@ -207,7 +213,8 @@ class ChunkRunner:
         colors, aux, wl = step(self.ig, s.colors, s.aux,
                                Worklist(mask=s.mask, items=items,
                                         count=s.ctr[COUNT]),
-                               window=self.window, force_hub=self.force_hub)
+                               window=self.window, force_hub=self.force_hub,
+                               tile_rows=self.tile_rows)
         s.colors.copy_(colors)
         s.aux.copy_(aux)
         s.mask.copy_(wl.mask)
@@ -218,9 +225,10 @@ class ChunkRunner:
 
     def _captured(self, cap: int, dense: bool) -> _Trip:
         """The CUDA graph of one trip at ``cap``, captured at first use."""
-        trip = self.trips.get((cap, dense))
+        key = (cap, dense, self.tile_rows)
+        trip = self.trips.get(key)
         if trip is None:
-            trip = self.trips[(cap, dense)] = capture_trip(
+            trip = self.trips[key] = capture_trip(
                 lambda s: self._trip(s, cap, dense), self.state,
                 pool=self.pool, stream=self.stream)
         return trip

@@ -66,6 +66,7 @@ from repro_torch.exec.spec import ExecutionSpec
 from repro_torch.graphs.csr import Graph
 from repro_torch.graphs.partition import boundary_info, prepare_partition
 from repro_torch.kernels._build import KERNEL_LAUNCHES
+from repro_torch.kernels.tune import resolve_tile_rows
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.report import (RunReport, dense_exchange_bytes,
                                     dense_swap_bytes, exchange_section,
@@ -375,7 +376,8 @@ class Session:
         if s["kind"] == "dist":
             return self._profile_dist(s)
         alg, ig = s["alg"], s["ig"]
-        kw = dict(window=s["window"], force_hub=s["force_hub"])
+        kw = dict(window=s["window"], force_hub=s["force_hub"],
+                  tile_rows=s["tile_rows"])
         key = ("obs-profile", "local", self.graph_key(ig), alg, s["fused"],
                tuple(sorted(kw.items())))
 
@@ -502,10 +504,13 @@ class Session:
         pol = policy or make_policy(spec.mode, spec.h)
         caps = bucket_capacities(n, ratio=spec.bucket_ratio)
         force_hub = ipgc.force_hub_enabled()
+        tile_rows = resolve_tile_rows(spec.tile_rows, ig.layout_kind,
+                                      self.device)
         dense_fn, sparse_fn = alg.step_fns(fused)
         if meter is not None:
             meter.statics = dict(kind="host", alg=alg, ig=ig, fused=fused,
-                                 window=window, force_hub=force_hub)
+                                 window=window, force_hub=force_hub,
+                                 tile_rows=tile_rows)
 
         colors, aux, wl = alg.init_state(ig)
         count = n
@@ -523,14 +528,16 @@ class Session:
                 if use_dense:
                     colors, aux, wl = dense_fn(ig, colors, aux, wl,
                                                window=window,
-                                               force_hub=force_hub)
+                                               force_hub=force_hub,
+                                               tile_rows=tile_rows)
                 else:
                     cap = pick_bucket(caps, count)
                     if wl.capacity > cap:
                         wl = resize_items(wl, cap, n)
                     colors, aux, wl = sparse_fn(ig, colors, aux, wl,
                                                 window=window,
-                                                force_hub=force_hub)
+                                                force_hub=force_hub,
+                                                tile_rows=tile_rows)
                 count = int(wl.count)  # the Pipe's single scalar read-back
             trace.append("D" if use_dense else "S")
             if meter is not None:
@@ -574,17 +581,19 @@ class Session:
         caps = bucket_capacities(n, ratio=spec.bucket_ratio)
         lows = chunk_lower_bounds(caps)
         force_hub = ipgc.force_hub_enabled()
+        tile_rows = resolve_tile_rows(spec.tile_rows, ig.layout_kind,
+                                      self.device)
         if meter is not None:
             meter.statics = dict(kind="outlined", alg=alg, ig=ig,
                                  fused=fused, window=window,
-                                 force_hub=force_hub)
+                                 force_hub=force_hub, tile_rows=tile_rows)
         rkey = (fused, force_hub, caps[0])
         runner = runners.get(rkey)
         if runner is None:
             runner = runners[rkey] = ChunkRunner(
                 ig, alg, fused=fused, window=window, force_hub=force_hub,
                 capacity=caps[0])
-        runner.reset()
+        runner.reset(tile_rows)
         count = n
 
         trace: list[str] = []
@@ -653,10 +662,11 @@ class Session:
         mesh = dist.resolve_mesh(spec.n_shards, devices, self.device)
         n_shards = len(mesh)
         bnd = spec.exchange != "dense"
+        tile_rows = spec.explicit_tile_rows()
         # the exchange joins the key: a dense-built step must never serve
         # a boundary run
         key = ("dist", _content_key(g), mesh, spec.window, spec.priority,
-               fused, spec.balance, alg, plan, spec.exchange)
+               fused, spec.balance, alg, plan, tile_rows, spec.exchange)
         with obs_trace.maybe_span("session.prepare"):
             g2, new_of_old, memo = self._partition(g, n_shards, spec.balance)
 
@@ -676,7 +686,8 @@ class Session:
                                                 spec.exchange)
                 steps = alg.make_dist_steps(
                     ig, mesh, window=window, fused=fused,
-                    exchange=spec.exchange, boundary=binfo, thresh=thresh)
+                    exchange=spec.exchange, boundary=binfo, thresh=thresh,
+                    tile_rows=tile_rows)
                 return ig, window, steps, binfo
 
             ig, window, steps, binfo = self.cached(key, build)

@@ -5,8 +5,11 @@ The host regime (the per-iteration host loop), the outlined regime (one
 chunk per capacity bucket) and the distributed regime (the sharded Pipe,
 dense or boundary exchange) run a spec on one graph; lane batching (``run_batch``, the
 stream service) replays the host regime on many graphs at once and checks
-its spec with ``validate_batchable``. The port has no ``impl`` or
-``tile_rows`` knob: on a CUDA device the steps always run its kernels.
+its spec with ``validate_batchable``. The port has no ``impl`` knob: on
+a CUDA device the steps always run its kernels. ``tile_rows`` is the row
+kernels' rows a block (``kernels/tune.py``): an int is honoured, "auto" or
+None asks the tuner on a CUDA device for an ELL layout and resolves to
+None (the default block) elsewhere; it never changes a result.
 """
 from __future__ import annotations
 
@@ -39,8 +42,12 @@ class ExecutionSpec:
     n_shards: "int | None" = None
     #: dist regime only: degree-balance the partition
     balance: bool = True
-    #: dist regime only: cross-shard color publication path; only
-    #: "dense" (the additive psum of the full vector) is ported
+    #: the row kernels' rows a block: int, "auto" or None
+    #: (``kernels.tune.resolve_tile_rows``); lane batching and the dist
+    #: regime take an int or None ("auto" is None there, as in repro)
+    tile_rows: "int | str | None" = "auto"
+    #: dist regime only: cross-shard color publication path: "dense"
+    #: (the additive exchange of the full vector), "boundary" or "auto"
     exchange: str = "dense"
 
     def __post_init__(self):
@@ -81,13 +88,19 @@ class ExecutionSpec:
                 "count threshold (hybrid / topology / data)")
         return alg
 
+    def explicit_tile_rows(self) -> "int | None":
+        """``tile_rows`` where no tuner is asked (lane batching, the
+        stream, the dist regime, as in the reference): an int as it is,
+        "auto" and None as None."""
+        return self.tile_rows if isinstance(self.tile_rows, int) else None
+
     def static_key(self) -> tuple:
         """The spec half of a session cache key: every field, the
         algorithm as its resolved (frozen, hashable) instance."""
         return (self.regime, self.mode, self.resolved_algo(), self.layout,
                 self.h, self.window, self.bucket_ratio, self.max_iter,
                 self.priority, self.fused, self.n_shards, self.balance,
-                self.exchange)
+                self.tile_rows, self.exchange)
 
 
 def spec_for(*, mode: str = "hybrid", algo: "str | object" = "ipgc",
@@ -97,6 +110,7 @@ def spec_for(*, mode: str = "hybrid", algo: "str | object" = "ipgc",
              outline: "bool | None" = None,
              layout: "str | object | None" = None,
              n_shards: "int | None" = None, balance: bool = True,
+             tile_rows: "int | str | None" = "auto",
              exchange: str = "dense") -> ExecutionSpec:
     """Map the ``engine.color`` keyword surface onto a spec:
     ``mode="dist-*"`` selects the distributed regime, then ``outline``
@@ -113,4 +127,4 @@ def spec_for(*, mode: str = "hybrid", algo: "str | object" = "ipgc",
                          h=h, window=window, bucket_ratio=bucket_ratio,
                          max_iter=max_iter, priority=priority, fused=fused,
                          n_shards=n_shards, balance=balance,
-                         exchange=exchange)
+                         tile_rows=tile_rows, exchange=exchange)

@@ -127,6 +127,18 @@ def require(t, what: str, dtype, shape: tuple, device) -> None:
         raise ValueError(f"{what}: expected a contiguous tensor")
 
 
+def tile_arg(tile_rows: "int | None", what: str) -> int:
+    """The ``tile_rows`` argument of a row kernel's launch: rows per
+    thread block (``csrc/rows.cuh``), 0 for the default block."""
+    if tile_rows is None:
+        return 0
+    if isinstance(tile_rows, bool) or not isinstance(tile_rows, int) \
+            or tile_rows < 1:
+        raise ValueError(f"{what}: tile_rows must be a positive int or "
+                         f"None, got {tile_rows!r}")
+    return tile_rows
+
+
 def check(err: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launch function."""
     if err:

@@ -55,7 +55,7 @@ def conflict_rows_plain(colors, priority, ell_idx, rows, cu, pu, ids,
 
 _ARGTYPES = ((ctypes.c_void_p,) * 9
              + (ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p))
+                ctypes.c_int, ctypes.c_void_p))
 
 
 def require_graph(what: str, colors, priority, ell_idx, rows,
@@ -74,8 +74,10 @@ def require_graph(what: str, colors, priority, ell_idx, rows,
 
 
 def conflict_cuda(colors, priority, ell_idx, rows, cu, pu, ids,
-                  newly) -> torch.Tensor:
-    """Launch the CUDA kernel (one launch; none for zero rows)."""
+                  newly, tile_rows: "int | None" = None) -> torch.Tensor:
+    """Launch the CUDA kernel (one launch; none for zero rows;
+    ``tile_rows`` rows a block, None the default block)."""
+    tile = _build.tile_arg(tile_rows, "conflict")
     dev = colors.device
     r, rg = require_graph("conflict", colors, priority, ell_idx, rows, dev)
     for name, t in (("cu", cu), ("pu", pu), ("ids", ids)):
@@ -90,7 +92,7 @@ def conflict_cuda(colors, priority, ell_idx, rows, cu, pu, ids,
                  None if rows is None else rows.data_ptr(), cu.data_ptr(),
                  pu.data_ptr(), ids.data_ptr(), newly.data_ptr(),
                  out.data_ptr(), r, rg, ell_idx.shape[1],
-                 colors.shape[0] - 1,
+                 colors.shape[0] - 1, tile,
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "conflict")
     _build.KERNEL_LAUNCHES["conflict"] += 1

@@ -30,8 +30,8 @@
 namespace {
 
 // T is int or int4; width counts T per ELL row.
-template <typename T>
-__global__ void __launch_bounds__(rows::kThreads)
+template <typename T, int B>
+__global__ void __launch_bounds__(B)
 conflict_kernel(const int* __restrict__ colors,
                 const int* __restrict__ priority, const T* __restrict__ ell,
                 const int* __restrict__ row_of, const int* __restrict__ cu,
@@ -72,15 +72,19 @@ template <typename T>
 void launch(const int* colors, const int* priority, const int* ell,
             const int* row_of, const int* cu, const int* pu, const int* ids,
             const uint8_t* newly, uint8_t* out, int64_t n_rows,
-            int64_t n_graph_rows, int k_width, int pad, cudaStream_t stream) {
+            int64_t n_graph_rows, int k_width, int pad, int tile_rows,
+            cudaStream_t stream) {
   constexpr int per = (int)(sizeof(T) / sizeof(int));
   const int width = k_width / per;
   const int lg = rows::gather_lanes_log2(width, per);
-  conflict_kernel<T><<<rows::blocks_for(n_rows, lg), rows::kThreads, 0,
-                       stream>>>(colors, priority,
-                                 reinterpret_cast<const T*>(ell), row_of, cu,
-                                 pu, ids, newly, out, n_rows, n_graph_rows,
-                                 width, pad, lg);
+  const int nt = rows::block_threads(tile_rows, lg);
+  ROWS_DISPATCH_BOUND(nt, B,
+      conflict_kernel<T, B><<<rows::blocks_for(n_rows, lg, nt), nt, 0,
+                              stream>>>(colors, priority,
+                                        reinterpret_cast<const T*>(ell),
+                                        row_of, cu, pu, ids, newly, out,
+                                        n_rows, n_graph_rows, width, pad,
+                                        lg));
 }
 
 }  // namespace
@@ -95,14 +99,15 @@ extern "C" int conflict_launch(const int* colors, const int* priority,
                                const int* cu, const int* pu, const int* ids,
                                const uint8_t* newly, uint8_t* out,
                                int64_t n_rows, int64_t n_graph_rows,
-                               int k_width, int pad, void* stream) {
+                               int k_width, int pad, int tile_rows,
+                               void* stream) {
   if (n_rows == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
   if (k_width % 4 == 0 && (reinterpret_cast<uintptr_t>(ell) & 15) == 0)
     launch<int4>(colors, priority, ell, row_of, cu, pu, ids, newly, out,
-                 n_rows, n_graph_rows, k_width, pad, s);
+                 n_rows, n_graph_rows, k_width, pad, tile_rows, s);
   else
     launch<int>(colors, priority, ell, row_of, cu, pu, ids, newly, out,
-                n_rows, n_graph_rows, k_width, pad, s);
+                n_rows, n_graph_rows, k_width, pad, tile_rows, s);
   return (int)cudaGetLastError();
 }

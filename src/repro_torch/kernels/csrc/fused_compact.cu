@@ -70,8 +70,8 @@ struct RowArgs {
 };
 
 // T is int or int4; a.width counts T per ELL row.
-template <int NW, typename T>
-__global__ void __launch_bounds__(rows::kThreads)
+template <int NW, typename T, int B>
+__global__ void __launch_bounds__(B)
 fused_rows_kernel(const T* __restrict__ ell, const RowArgs a) {
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t i = tid >> a.lpr_log2;
@@ -135,23 +135,25 @@ fused_rows_kernel(const T* __restrict__ ell, const RowArgs a) {
 }
 
 template <int NW, typename T>
-int launch_typed(const int* ell, RowArgs a, int k_width,
+int launch_typed(const int* ell, RowArgs a, int k_width, int tile_rows,
                  cudaStream_t stream) {
   constexpr int per = (int)(sizeof(T) / sizeof(int));
   a.width = k_width / per;
   a.lpr_log2 = rows::gather_lanes_log2(a.width, per);
-  fused_rows_kernel<NW, T><<<rows::blocks_for(a.n_rows, a.lpr_log2),
-                             rows::kThreads, 0, stream>>>(
-      reinterpret_cast<const T*>(ell), a);
+  const int nt = rows::block_threads(tile_rows, a.lpr_log2);
+  ROWS_DISPATCH_BOUND(nt, B,
+      fused_rows_kernel<NW, T, B><<<rows::blocks_for(a.n_rows, a.lpr_log2, nt),
+                                nt, 0, stream>>>(
+          reinterpret_cast<const T*>(ell), a));
   return (int)cudaGetLastError();
 }
 
 template <int NW>
-int launch_rows(const int* ell, const RowArgs& a, int k_width,
+int launch_rows(const int* ell, const RowArgs& a, int k_width, int tile_rows,
                 cudaStream_t stream) {
   if (k_width % 4 == 0 && (reinterpret_cast<uintptr_t>(ell) & 15) == 0)
-    return launch_typed<NW, int4>(ell, a, k_width, stream);
-  return launch_typed<NW, int>(ell, a, k_width, stream);
+    return launch_typed<NW, int4>(ell, a, k_width, tile_rows, stream);
+  return launch_typed<NW, int>(ell, a, k_width, tile_rows, stream);
 }
 
 }  // namespace
@@ -162,7 +164,9 @@ int launch_rows(const int* ell, const RowArgs& a, int k_width,
 // n_graph_rows meaning an empty row. hub_forb ((n_hub+1) * window bytes),
 // hub_lose (n_hub+1) and hub_slot (n_graph_rows) are all null (no-hub
 // variant) or all set (hub variant). scratch holds
-// compact::state_words(n_rows) 64-bit words. Returns a cudaError_t code.
+// compact::state_words(n_rows) 64-bit words. tile_rows <= 0 is the default
+// block of the row pass (rows.cuh; the compaction keeps its own tile).
+// Returns a cudaError_t code.
 extern "C" int fused_compact_launch(
     const int* colors, const int* priority, const int* ell,
     const int* row_of, const int* base, const int* cu, const int* pu,
@@ -171,7 +175,7 @@ extern "C" int fused_compact_launch(
     int* new_c, int* new_b, uint8_t* still, int* items, int* count,
     unsigned long long* scratch, int64_t n_rows, int64_t n_graph_rows,
     int k_width, int window, int pad, int n_hub, int64_t capacity,
-    int n_sentinel, int no_color, void* stream) {
+    int n_sentinel, int no_color, int tile_rows, void* stream) {
   if (window < 1 || window > rows::kMaxWindow)
     return (int)cudaErrorInvalidValue;
   // (an empty hub_slot, of a graph with no rows, may come as null)
@@ -186,7 +190,7 @@ extern "C" int fused_compact_launch(
                     hub_forb == nullptr ? 0 : n_hub, 0, no_color};
     int err = 0;
     ROWS_DISPATCH_NW(window, NW,
-                     err = launch_rows<NW>(ell, a, k_width, s));
+                     err = launch_rows<NW>(ell, a, k_width, tile_rows, s));
     if (err) return err;
   }
   return compact::launch(still, ids, n_rows, capacity, n_sentinel, items,

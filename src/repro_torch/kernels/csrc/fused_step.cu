@@ -67,8 +67,8 @@ struct StepArgs {
 };
 
 // T is int or int4; a.width counts T per ELL row.
-template <int NW, typename T>
-__global__ void __launch_bounds__(rows::kThreads)
+template <int NW, typename T, int B>
+__global__ void __launch_bounds__(B)
 fused_step_kernel(const T* __restrict__ ell, const StepArgs a) {
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t i = tid >> a.lpr_log2;
@@ -126,23 +126,25 @@ fused_step_kernel(const T* __restrict__ ell, const StepArgs a) {
 }
 
 template <int NW, typename T>
-int launch_typed(const int* ell, StepArgs a, int k_width,
+int launch_typed(const int* ell, StepArgs a, int k_width, int tile_rows,
                  cudaStream_t stream) {
   constexpr int per = (int)(sizeof(T) / sizeof(int));
   a.width = k_width / per;
   a.lpr_log2 = rows::gather_lanes_log2(a.width, per);
-  fused_step_kernel<NW, T><<<rows::blocks_for(a.n_rows, a.lpr_log2),
-                             rows::kThreads, 0, stream>>>(
-      reinterpret_cast<const T*>(ell), a);
+  const int nt = rows::block_threads(tile_rows, a.lpr_log2);
+  ROWS_DISPATCH_BOUND(nt, B,
+      fused_step_kernel<NW, T, B><<<rows::blocks_for(a.n_rows, a.lpr_log2, nt),
+                                nt, 0, stream>>>(
+          reinterpret_cast<const T*>(ell), a));
   return (int)cudaGetLastError();
 }
 
 template <int NW>
-int launch_rows(const int* ell, const StepArgs& a, int k_width,
+int launch_rows(const int* ell, const StepArgs& a, int k_width, int tile_rows,
                 cudaStream_t stream) {
   if (k_width % 4 == 0 && (reinterpret_cast<uintptr_t>(ell) & 15) == 0)
-    return launch_typed<NW, int4>(ell, a, k_width, stream);
-  return launch_typed<NW, int>(ell, a, k_width, stream);
+    return launch_typed<NW, int4>(ell, a, k_width, tile_rows, stream);
+  return launch_typed<NW, int>(ell, a, k_width, tile_rows, stream);
 }
 
 }  // namespace
@@ -152,14 +154,15 @@ int launch_rows(const int* ell, const StepArgs& a, int k_width,
 // null (row i is graph row i) or holds n_rows graph rows, values >=
 // n_graph_rows meaning an empty row. hub_forb ((n_hub+1) * window bytes),
 // hub_lose (n_hub+1) and hub_slot (n_graph_rows) are all null (no-hub
-// variant) or all set (hub variant). Returns a cudaError_t code.
+// variant) or all set (hub variant). tile_rows <= 0 is the default block
+// (rows.cuh). Returns a cudaError_t code.
 extern "C" int fused_step_launch(
     const int* colors, const int* priority, const int* ell,
     const int* row_of, const int* base, const int* cu, const int* pu,
     const int* ids, const uint8_t* pending, const uint8_t* hub_forb,
     const uint8_t* hub_lose, const int* hub_slot, uint8_t* lose, int* first,
     int64_t n_rows, int64_t n_graph_rows, int k_width, int window, int pad,
-    int n_hub, void* stream) {
+    int n_hub, int tile_rows, void* stream) {
   if (window < 1 || window > rows::kMaxWindow)
     return (int)cudaErrorInvalidValue;
   // (an empty hub_slot, of a shard with no rows, may come as null)
@@ -172,7 +175,7 @@ extern "C" int fused_step_launch(
                    n_graph_rows, 0, window, pad,
                    hub_forb == nullptr ? 0 : n_hub, 0};
   ROWS_DISPATCH_NW(window, NW,
-                   return launch_rows<NW>(ell, a, k_width,
+                   return launch_rows<NW>(ell, a, k_width, tile_rows,
                                           (cudaStream_t)stream));
   return 0;
 }

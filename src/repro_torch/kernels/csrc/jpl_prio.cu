@@ -42,8 +42,8 @@ struct Extrema {
 };
 
 // T is int (one entry per load) or int4 (four); width counts T per row.
-template <typename T>
-__global__ void __launch_bounds__(rows::kThreads)
+template <typename T, int B>
+__global__ void __launch_bounds__(B)
 jpl_extrema_kernel(const T* __restrict__ npr, int* __restrict__ out_max,
                    int* __restrict__ out_min, int64_t n_rows, int width,
                    int lpr_log2) {
@@ -68,24 +68,29 @@ jpl_extrema_kernel(const T* __restrict__ npr, int* __restrict__ out_max,
 
 template <typename T>
 void launch(const int* npr, int* out_max, int* out_min, int64_t n_rows,
-            int width, cudaStream_t stream) {
+            int width, int tile_rows, cudaStream_t stream) {
   const int lg = rows::lanes_log2(width);
-  jpl_extrema_kernel<T><<<rows::blocks_for(n_rows, lg), rows::kThreads, 0,
-                          stream>>>(reinterpret_cast<const T*>(npr), out_max,
-                                    out_min, n_rows, width, lg);
+  const int nt = rows::block_threads(tile_rows, lg);
+  ROWS_DISPATCH_BOUND(nt, B,
+      jpl_extrema_kernel<T, B><<<rows::blocks_for(n_rows, lg, nt), nt, 0,
+                                 stream>>>(reinterpret_cast<const T*>(npr),
+                                           out_max, out_min, n_rows, width,
+                                           lg));
 }
 
 }  // namespace
 
-// npr is a contiguous (n_rows, k_width) int32 tile, k_width >= 1. Returns
-// a cudaError_t code.
+// npr is a contiguous (n_rows, k_width) int32 tile, k_width >= 1;
+// tile_rows <= 0 is the default block (rows.cuh). Returns a cudaError_t
+// code.
 extern "C" int jpl_extrema_launch(const int* npr, int* out_max, int* out_min,
-                                  int64_t n_rows, int k_width, void* stream) {
+                                  int64_t n_rows, int k_width, int tile_rows,
+                                  void* stream) {
   if (n_rows == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
   if (k_width % 4 == 0 && (reinterpret_cast<uintptr_t>(npr) & 15) == 0)
-    launch<int4>(npr, out_max, out_min, n_rows, k_width / 4, s);
+    launch<int4>(npr, out_max, out_min, n_rows, k_width / 4, tile_rows, s);
   else
-    launch<int>(npr, out_max, out_min, n_rows, k_width, s);
+    launch<int>(npr, out_max, out_min, n_rows, k_width, tile_rows, s);
   return (int)cudaGetLastError();
 }

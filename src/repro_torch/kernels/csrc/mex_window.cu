@@ -23,8 +23,8 @@
 
 namespace {
 
-template <int NW>
-__global__ void __launch_bounds__(rows::kThreads)
+template <int NW, int B>
+__global__ void __launch_bounds__(B)
 mex_window_kernel(const int* __restrict__ nc, const int* __restrict__ base,
                   const uint8_t* __restrict__ extra, int* __restrict__ out,
                   int64_t n_rows, int k_width, int window, int lpr_log2) {
@@ -52,26 +52,31 @@ mex_window_kernel(const int* __restrict__ nc, const int* __restrict__ base,
 
 template <int NW>
 int launch(const int* nc, const int* base, const uint8_t* extra, int* out,
-           int64_t n_rows, int k_width, int window, cudaStream_t stream) {
+           int64_t n_rows, int k_width, int window, int tile_rows,
+           cudaStream_t stream) {
   const int lg = rows::lanes_log2(k_width);
-  mex_window_kernel<NW><<<rows::blocks_for(n_rows, lg), rows::kThreads, 0,
-                          stream>>>(nc, base, extra, out, n_rows, k_width,
-                                    window, lg);
+  const int nt = rows::block_threads(tile_rows, lg);
+  ROWS_DISPATCH_BOUND(nt, B,
+      mex_window_kernel<NW, B><<<rows::blocks_for(n_rows, lg, nt), nt, 0,
+                                 stream>>>(nc, base, extra, out, n_rows,
+                                           k_width, window, lg));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// extra may be null (no extra forbidden slots). Returns a cudaError_t code.
+// extra may be null (no extra forbidden slots); tile_rows <= 0 is the
+// default block (rows.cuh). Returns a cudaError_t code.
 extern "C" int mex_window_launch(const int* nc, const int* base,
                                  const uint8_t* extra, int* out,
                                  int64_t n_rows, int k_width, int window,
-                                 void* stream) {
+                                 int tile_rows, void* stream) {
   if (n_rows == 0) return 0;
   if (window < 1 || window > rows::kMaxWindow)
     return (int)cudaErrorInvalidValue;
   ROWS_DISPATCH_NW(window, NW,
                    return launch<NW>(nc, base, extra, out, n_rows, k_width,
-                                     window, (cudaStream_t)stream));
+                                     window, tile_rows,
+                                     (cudaStream_t)stream));
   return 0;
 }

@@ -6,6 +6,14 @@
 // is a multiple of 32), so every lane of a warp takes part in each shuffle,
 // also lanes past the last row. conflict and fused_compact walk the graph's
 // ELL rows themselves through the gathered-row reader at the end.
+//
+// Block size: kThreads by default; a launch given tile_rows > 0 (the
+// tile tuner's knob, kernels/tune.py) takes tile_rows << lpr_log2 threads,
+// raised to a whole number of warps and capped at kMaxThreads, so a block
+// owns tile_rows rows where that fits. Any block size gives the same
+// result. The kernels are instantiated twice, bounded at kThreads (the
+// default and every smaller block) and at kMaxThreads, so the default
+// launch keeps its register budget.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -14,6 +22,7 @@
 namespace rows {
 
 constexpr int kThreads = 256;
+constexpr int kMaxThreads = 1024;
 constexpr int kMaxWindow = 256;           // 8 bitmap words of 32 bits
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -24,9 +33,18 @@ inline int lanes_log2(int k) {
   return l;
 }
 
-inline unsigned blocks_for(int64_t rows, int lpr_log2) {
-  int64_t threads = rows << lpr_log2;
-  return (unsigned)((threads + kThreads - 1) / kThreads);
+// Threads of one block for rows of 1 << lpr_log2 lanes (see the top).
+inline int block_threads(int tile_rows, int lpr_log2) {
+  if (tile_rows <= 0) return kThreads;
+  int64_t t = ((int64_t)tile_rows << lpr_log2) + 31;
+  t -= t % 32;
+  return (int)(t < kMaxThreads ? t : kMaxThreads);
+}
+
+inline unsigned blocks_for(int64_t rows, int lpr_log2,
+                           int threads = kThreads) {
+  int64_t all = rows << lpr_log2;
+  return (unsigned)((all + threads - 1) / threads);
 }
 
 // Forbidden bitmap of a color window [base, base+W), NW = ceil(W/32) words
@@ -160,6 +178,14 @@ __device__ __forceinline__ void for_each_neighbour(const T* __restrict__ row,
 }
 
 }  // namespace rows
+
+// Runs CALL with BOUND_NAME the __launch_bounds__ of a block of `threads`.
+#define ROWS_DISPATCH_BOUND(threads, BOUND_NAME, ...)                \
+  if ((threads) <= rows::kThreads) {                                 \
+    constexpr int BOUND_NAME = rows::kThreads; __VA_ARGS__;          \
+  } else {                                                           \
+    constexpr int BOUND_NAME = rows::kMaxThreads; __VA_ARGS__;       \
+  }
 
 // Instantiates F<NW> for NW = ceil(window / 32) in 1..8 and runs CALL.
 #define ROWS_DISPATCH_NW(window, NW_NAME, CALL)            \

@@ -86,17 +86,21 @@ def fused_compact_rows_plain(colors, priority, ell_idx, rows, base, cu, pu,
 _ARGTYPES = ((ctypes.c_void_p,) * 19
              + (ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p))
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
 
 
 def fused_compact_cuda(colors, priority, ell_idx, rows, base, cu, pu, ids,
                        active, pending, hub_forb, hub_lose, hub_slot,
-                       window: int, *, capacity: int, n_sentinel: int):
+                       window: int, *, capacity: int, n_sentinel: int,
+                       tile_rows: "int | None" = None):
     """Launch the CUDA kernels (two launches: the row pass, then the
-    one-pass emission of ``compact.cuh``; one for zero rows)."""
+    one-pass emission of ``compact.cuh``; one for zero rows).
+    ``tile_rows`` is the row pass's rows a block, None its default block;
+    the emission keeps its own tile."""
     if not 1 <= window <= MAX_WINDOW:
         raise ValueError(f"fused_compact: the CUDA kernel takes windows of "
                          f"1..{MAX_WINDOW} colors, got {window}")
+    tile = _build.tile_arg(tile_rows, "fused_compact")
     hub = check_hub("fused_compact", hub_forb, hub_lose, hub_slot)
     dev = colors.device
     r, rg = require_graph("fused_compact", colors, priority, ell_idx, rows,
@@ -130,7 +134,7 @@ def fused_compact_cuda(colors, priority, ell_idx, rows, base, cu, pu, ids,
                  items.data_ptr(), count.data_ptr(),
                  scratch(r, dev).data_ptr(), r, rg, ell_idx.shape[1],
                  window, colors.shape[0] - 1, n_hub, capacity, n_sentinel,
-                 int(NO_COLOR), torch.cuda.current_stream(dev).cuda_stream)
+                 int(NO_COLOR), tile, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_compact")
     _build.KERNEL_LAUNCHES["fused_compact"] += 2 if r else 1
     return new_c, new_base, still, items, count

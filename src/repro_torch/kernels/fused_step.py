@@ -53,16 +53,19 @@ def fused_step_rows_plain(colors, priority, ell_idx, rows, base, cu, pu, ids,
 
 _ARGTYPES = ((ctypes.c_void_p,) * 14
              + (ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
 
 
 def fused_step_cuda(colors, priority, ell_idx, rows, base, cu, pu, ids,
-                    pending, hub_forb, hub_lose, hub_slot, window: int
+                    pending, hub_forb, hub_lose, hub_slot, window: int,
+                    tile_rows: "int | None" = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel (one launch; none for zero rows)."""
+    """Launch the CUDA kernel (one launch; none for zero rows;
+    ``tile_rows`` rows a block, None the default block)."""
     if not 1 <= window <= MAX_WINDOW:
         raise ValueError(f"fused_step: the CUDA kernel takes windows of "
                          f"1..{MAX_WINDOW} colors, got {window}")
+    tile = _build.tile_arg(tile_rows, "fused_step")
     hub = check_hub("fused_step", hub_forb, hub_lose, hub_slot)
     dev = colors.device
     r, rg = require_graph("fused_step", colors, priority, ell_idx, rows, dev)
@@ -90,7 +93,7 @@ def fused_step_cuda(colors, priority, ell_idx, rows, base, cu, pu, ids,
                  ids.data_ptr(), pending.data_ptr(), ptr(hub_forb),
                  ptr(hub_lose), ptr(hub_slot), lose.data_ptr(),
                  first.data_ptr(), r, rg, ell_idx.shape[1], window,
-                 colors.shape[0] - 1, n_hub,
+                 colors.shape[0] - 1, n_hub, tile,
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_step")
     _build.KERNEL_LAUNCHES["fused_step"] += 1

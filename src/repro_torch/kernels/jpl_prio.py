@@ -23,14 +23,16 @@ def jpl_extrema_plain(npr: torch.Tensor
 
 
 _ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int64, ctypes.c_int,
-                                      ctypes.c_void_p)
+                                      ctypes.c_int, ctypes.c_void_p)
 
 
-def jpl_extrema_cuda(npr: torch.Tensor
+def jpl_extrema_cuda(npr: torch.Tensor, tile_rows: "int | None" = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel (one launch)."""
+    """Launch the CUDA kernel (one launch; ``tile_rows`` rows a block,
+    None the default block)."""
     r, k = npr.shape
     dev = npr.device
+    tile = _build.tile_arg(tile_rows, "jpl_extrema")
     _build.require(npr, "jpl_extrema npr", torch.int32, (r, k), dev)
     if k == 0 and r:
         raise ValueError("jpl_extrema: rows of zero width have no max")
@@ -39,7 +41,7 @@ def jpl_extrema_cuda(npr: torch.Tensor
     fn = _build.function("jpl_prio", "jpl_extrema_launch", _ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(npr.data_ptr(), out_max.data_ptr(), out_min.data_ptr(), r,
-                 k, torch.cuda.current_stream(dev).cuda_stream)
+                 k, tile, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "jpl_extrema")
     _build.KERNEL_LAUNCHES["jpl_prio"] += 1
     return out_max, out_min

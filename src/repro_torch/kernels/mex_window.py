@@ -39,18 +39,21 @@ def mex_window_plain(nc: torch.Tensor, base: torch.Tensor,
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p)
+             ctypes.c_int, ctypes.c_void_p)
 
 
 def mex_window_cuda(nc: torch.Tensor, base: torch.Tensor,
                     extra_forb: "torch.Tensor | None",
-                    window: int) -> torch.Tensor:
-    """Launch the CUDA kernel (one launch)."""
+                    window: int, tile_rows: "int | None" = None
+                    ) -> torch.Tensor:
+    """Launch the CUDA kernel (one launch; ``tile_rows`` rows a block,
+    None the default block)."""
     if not 1 <= window <= MAX_WINDOW:
         raise ValueError(f"mex_window: the CUDA kernel takes windows of 1.."
                          f"{MAX_WINDOW} colors, got {window}")
     r, k = nc.shape
     dev = nc.device
+    tile = _build.tile_arg(tile_rows, "mex_window")
     _build.require(nc, "mex_window nc", torch.int32, (r, k), dev)
     _build.require(base, "mex_window base", torch.int32, (r,), dev)
     if extra_forb is not None:
@@ -61,7 +64,7 @@ def mex_window_cuda(nc: torch.Tensor, base: torch.Tensor,
     with torch.cuda.device(dev):
         err = fn(nc.data_ptr(), base.data_ptr(),
                  None if extra_forb is None else extra_forb.data_ptr(),
-                 out.data_ptr(), r, k, window,
+                 out.data_ptr(), r, k, window, tile,
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mex_window")
     _build.KERNEL_LAUNCHES["mex_window"] += 1

@@ -352,7 +352,8 @@ class _LaneGroup:
                                   chunk=chunk), \
                 Timer() as t:
             trips = self.state.run(chunk, step=st._step, window=self.window,
-                                   force_hub=st._force_hub)
+                                   force_hub=st._force_hub,
+                                   tile_rows=st._tile_rows)
         st.dispatch_seconds += t.seconds
         st.dispatches += 1
         st.lane_rounds += self.b
@@ -439,6 +440,7 @@ class StreamSession:
         self._fused = self._alg.resolve_fused(spec.fused, default=False)
         self._step = self._alg.lane_step(self._fused)
         self._force_hub = ipgc.force_hub_enabled()
+        self._tile_rows = spec.explicit_tile_rows()
         self._pol = make_policy(spec.mode, spec.h)
         self._caps = bucket_capacities(self.config.max_nodes,
                                        ratio=spec.bucket_ratio)

@@ -1,7 +1,9 @@
-"""The port's CUDA kernels on the card: each against its plain version,
-and colorings (host loop, outlined regime, distributed Pipe with the
-dense and the boundary exchange, traced runs, lane batching and the
-stream service) and BFS on the card against the same runs on the CPU.
+"""The port's CUDA kernels on the card: each against its plain version
+(the row kernels at every ``tile_rows`` too), the tile tuner, and
+colorings (host loop, outlined regime, distributed Pipe with the dense
+and the boundary exchange, traced runs, lane batching and the stream
+service, trips keyed by tile) and BFS on the card against the same runs
+on the CPU; the LM serving path's default device.
 Needs a
 CUDA device and nvcc; skips without a device. Imports no JAX, so it runs
 where only PyTorch is installed:
@@ -606,3 +608,142 @@ def test_card_traced_run_launches_what_untraced_launches(dev, spec_kw):
     cpu = Session("cpu").run(spec, g, trace=True)
     assert (rep.launches, rep.gathers, rep.exchanges) == \
         (cpu.launches, cpu.gathers, cpu.exchanges)
+
+
+# --- the tile tuner and tile_rows --------------------------------------------
+
+#: tiles of the row kernels: the tuner's candidates, one that is not a
+#: power of two, one block of a single row, and tiles past the 1024 cap
+_TILES = (1, 8, 32, 100, 128, 1024, 4096)
+
+
+@pytest.mark.parametrize("tile", _TILES)
+@pytest.mark.parametrize("rg,k,w", [(1, 1, 32), (257, 40, 128),
+                                    (3000, 128, 256), (100, 3, 200)])
+@pytest.mark.parametrize("sparse,hub", [(False, False), (True, True)])
+def test_row_kernels_match_plain_at_every_tile(dev, tile, rg, k, w, sparse,
+                                               hub):
+    """The five row kernels the reference tiles give their plain twin's
+    result at every ``tile_rows`` (``csrc/rows.cuh``: blocks of 32..1024
+    threads), launching once each."""
+    c = gather_case(rg + k + w + tile, rg, k, sparse=sparse, hub=hub,
+                    window=w, lo=3)
+    r = len(c["cu"])
+    rng = np.random.default_rng(tile + rg)
+    nc = rng.integers(-2, 300, size=(r, k)).astype(np.int32)
+    base = (rng.integers(0, 4, size=r) * w).astype(np.int32)
+    extra = (rng.random((r, w)) < 0.25) if hub else None
+    m = [_t(a, dev) for a in (nc, base, extra)]
+    assert torch.equal(ops.mex_window(*m, w, tile), mex_window_plain(*m, w))
+    npr = _t(np.where(rng.random((r, k)) < 0.3, -1, nc), dev)
+    assert all(torch.equal(a, b) for a, b in
+               zip(ops.jpl_extrema(npr, tile), jpl_extrema_plain(npr)))
+    args = _gather_args(c, _CONFLICT, dev)
+    assert torch.equal(ops.conflict(*args, tile).cpu(),
+                       conflict_rows_plain(*_cpu(args)))
+    fargs = _gather_args(c, _FUSED, dev)
+    got = ops.fused_compact(*fargs, w, capacity=r, n_sentinel=c["n"],
+                            tile_rows=tile)
+    want = fused_compact_rows_plain(*_cpu(fargs), w, capacity=r,
+                                    n_sentinel=c["n"])
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    sargs = fargs[:8] + fargs[9:]
+    got = ops.fused_step(*sargs, w, tile)
+    want = fused_step_rows_plain(*_cpu(sargs), w)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+def test_card_tuner_sweeps_and_persists(dev, tmp_path, monkeypatch):
+    """The tuner on the card: ``cuda-sm90`` keys, every candidate timed
+    on the kernel (each call some hundred microseconds), a memo hit, then
+    the file read by a fresh memo; the sweep's launches are scoped away."""
+    from repro_torch.kernels import tune
+    monkeypatch.setenv(tune.CACHE_ENV, str(tmp_path / "tune.json"))
+    tune.clear_memo()
+    try:
+        with _build.KERNEL_LAUNCHES.scope() as kl:
+            cfg = tune.get_tile_config("ell-tail", device=dev)
+            assert not any(kl.as_dict().values())
+        assert set(cfg.micros) == {"8", "32", "128"}
+        assert all(v > 50 for v in cfg.micros.values())
+        assert cfg.tile_rows in tune.CANDIDATES
+        assert tune.get_tile_config("ell-tail", device=dev) is cfg
+        tune.clear_memo()
+        assert tune.get_tile_config("ell-tail", device=dev) == cfg
+        key = tune.tune_key(tune.backend_name(dev), "ell-tail")
+        assert key.startswith("cuda-sm")
+        import json
+        data = json.loads((tmp_path / "tune.json").read_text())
+        assert data["entries"][key]["tile_rows"] == cfg.tile_rows
+        assert tune.resolve_tile_rows("auto", "ell-tail", dev) == \
+            cfg.tile_rows
+        assert tune.resolve_tile_rows("auto", "csr-segment", dev) is None
+    finally:
+        tune.clear_memo()
+
+
+def test_card_trips_are_keyed_by_tile(dev):
+    """An outlined run and a run_batch at two tiles on one session: each
+    tile captures its own trips, never replays the other's, and every run
+    equals the default one."""
+    from repro_torch.exec import ExecutionSpec, Session, chunk
+    g = repro_torch.get_dataset("kron_g500-logn21_s", scale=0.25,
+                                layout="ell-tail", ell_cap=128)
+    s = Session(dev)
+    base = s.run(ExecutionSpec(regime="host", fused=False, tile_rows=None),
+                 g)
+    for regime in ("outlined", "batch"):
+        graphs = 0
+        for tile in (8, 32, 8):
+            spec = ExecutionSpec(regime="outlined" if regime == "outlined"
+                                 else "host", fused=False, tile_rows=tile)
+            with chunk.CHUNK_COUNTS.scope() as counts:
+                r = (s.run(spec, g) if regime == "outlined"
+                     else s.run_batch(spec, [g])[0])
+                captured = counts["graphs"]
+            graphs += captured
+            np.testing.assert_array_equal(r.colors, base.colors)
+            assert (r.iterations, r.mode_trace) == (base.iterations,
+                                                    base.mode_trace)
+            if tile == 32:
+                assert captured > 0              # not the 8-tile trips
+                first = graphs
+        assert graphs == first                   # the second 8: replays
+    tiles = {key[2] for r in _outlined_runners(s, g) for key in r.trips}
+    assert tiles == {8, 32}
+    lanes = {key[3] for st in _lane_groups(s) for key in st.trips}
+    assert lanes == {8, 32}
+
+
+# --- the LM serving path -------------------------------------------------------
+
+def test_card_serve_defaults_to_the_card():
+    """``serve`` without a device runs on the card; at a smoke config in
+    fp32 (TF32 off) its prefill and first decode step equal the CPU's
+    on the same weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tfm
+    cfg = get_arch("qwen3-moe-30b-a3b").make_smoke()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        params, _ = tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                                    device="cpu")
+        card = serve(cfg, batch=2, prompt_len=8, gen=3,
+                     params={k: ({kk: vv.cuda() for kk, vv in v.items()}
+                                 if isinstance(v, dict) else v.cuda())
+                             for k, v in params.items()})
+        assert card.tokens.device.type == "cuda"
+        cpu_logits, cache = tfm.prefill(params, card.prompts.cpu(), cfg,
+                                        max_len=11)
+        np.testing.assert_allclose(card.prefill_logits.cpu().numpy(),
+                                   cpu_logits.numpy(), rtol=1e-4, atol=1e-4)
+        step, _ = tfm.decode_step(params, card.tokens[:, :1].cpu(), cache,
+                                  cfg)
+        np.testing.assert_allclose(card.step_logits.cpu().numpy(),
+                                   step.numpy(), rtol=1e-4, atol=1e-4)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
