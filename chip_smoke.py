@@ -146,7 +146,7 @@ each failing the script on any error:
    line's ``batch_launches`` are the replayed launches of this phase's
    run_batch calls and streams.
 
-8. lm (last): the LM serving path. The five LM archs' smoke configs in
+8. lm: the LM serving path. The five LM archs' smoke configs in
    fp32 (TF32 off) on the card and on the CPU, the same weights and
    tokens: prefill logits and three teacher-forced decode steps, with the
    plain and the int8 cache, within ``LM_CPU_TOL``; then Qwen3-30B-A3B at
@@ -166,6 +166,24 @@ each failing the script on any error:
    step over a bf16 and an int8 cache of the same prompts, interleaved
    wall ms and one ``torch.profiler`` trace of each (device µs, launches,
    the top operations: ``lm.decode_profile``).
+9. train (last): the LM training path (no kernel of this repo runs
+   there: the reference has none). ``train.card_vs_cpu``,
+   one ``launch.train.build_step`` step of each LM smoke config in fp32
+   (TF32 off) on the card and on the CPU from the same weights, state and
+   batch, and one ``--compress`` step at one replica, within
+   ``tests/_train_check.py``'s tolerances (loss, grad norm, every m, v
+   and parameter leaf); ``train.resume``, ``train()`` for 8 steps against
+   4, a checkpoint, a restore into fresh state and 4 more, under
+   deterministic algorithms, equal losses and parameters, and a checkpoint
+   written on the CPU restored onto the card exactly; ``train.full``,
+   Minitron-4B at its published widths (d_model 3072, 24 heads, 8 KV
+   heads, head_dim 128, d_ff 9216, squared ReLU, vocab 256,000), all 32
+   layers, bf16, random weights from a seed, ``launch.train.train``
+   on the reference driver's traffic (batch 8 x 128, lr 3e-3, warmup 20)
+   for 20 steps with ``update_in_chunks`` and remat: init seconds, each
+   step's ms (CUDA events at the step boundaries; the median of steps
+   3-20), tok/s, the model-FLOPs share, peak GiB, every loss and grad
+   norm; all finite, grad norms above 0, peak under the card's memory.
 
 The ``done`` line gives the seconds of each stretch of ``main``
 (``phase_seconds``).
@@ -2730,6 +2748,206 @@ def lm_serve_phase(card: str) -> dict:
     return checks
 
 
+# --- the LM training path -----------------------------------------------------
+
+#: card = CPU for one ``build_step`` step at the smoke configs, fp32 (TF32
+#: off): the driver's optimizer settings, a short sequence (the tolerances
+#: are ``tests/_train_check.py``'s)
+TRAIN_OPT = dict(lr=3e-3, warmup_steps=20, total_steps=200)
+TRAIN_SMOKE = dict(batch=8, seq_len=32)
+#: the resume check: one dense smoke config (every op of its step has a
+#: deterministic CUDA form under ``use_deterministic_algorithms``), 8
+#: steps against 4 + a restore + 4
+TRAIN_RESUME_ARCH = "minitron-4b"
+TRAIN_RESUME_STEPS = 8
+#: the full-width training cell: Minitron-4B at all 32 layers, bf16, on the
+#: reference driver's traffic (batch 8 x 128, lr 3e-3, warmup 20), 20
+#: steps, the update a layer at a time, each layer recomputed in backward
+TRAIN_ARCH = "minitron-4b"
+TRAIN_FULL = dict(batch=8, seq_len=128)
+TRAIN_FULL_OPT = dict(lr=3e-3, warmup_steps=20, total_steps=20,
+                      update_in_chunks=True)
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+BF16_FLOPS_PER_S = 989e12
+
+
+def _cpu_params(cfg, seed: int = 0):
+    from repro_torch.models import transformer as tfm
+    params, _ = tfm.init_params(cfg, torch.Generator().manual_seed(seed),
+                                device="cpu")
+    return params
+
+
+def train_card_vs_cpu_phase() -> None:
+    """One ``build_step`` step of each LM smoke config on the card and on
+    the CPU from the same weights, state and batch (fp32, TF32 off); then
+    one ``--compress`` step at one replica. Gaps and tolerances as
+    ``tests/_train_check.py`` states them."""
+    from _train_check import step_gaps, to_device
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipelines import TokenPipeline
+    from repro_torch.launch.train import build_step
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.optim.compression import compress_init
+
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for arch, compress in [(a, False) for a in LM_ARCHS] + [
+                ("gemma-7b", True)]:
+            cfg = get_arch(arch).make_smoke()
+            params = _cpu_params(cfg)
+            batch = TokenPipeline(vocab=cfg.vocab, global_batch=TRAIN_SMOKE[
+                "batch"], seq_len=TRAIN_SMOKE["seq_len"]).batch_at(0, "cpu")
+            out = {}
+            for where in ("cpu", "cuda"):
+                p = to_device(params, where)
+                b = {k: v.to(where) for k, v in batch.items()}
+                if compress:
+                    step = build_step(cfg, opt_cfg, compress=True,
+                                      mesh=[where])
+                    p, o, _, m = step(p, adamw_init(p), [compress_init(p)],
+                                      b)
+                else:
+                    p, o, m = build_step(cfg, opt_cfg)(p, adamw_init(p), b)
+                out[where] = (p, o, m)
+            torch.cuda.synchronize()
+            gaps = step_gaps(out["cuda"], out["cpu"],
+                             wd=opt_cfg.weight_decay, compressed=compress)
+            log(phase="train.card_vs_cpu", arch=arch, compress=compress,
+                loss=float(out["cpu"][2]["loss"]),
+                grad_norm=float(out["cpu"][2]["grad_norm"]), gaps=gaps,
+                equal=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def train_resume_phase() -> None:
+    """``train()`` for ``TRAIN_RESUME_STEPS`` steps straight against half,
+    a checkpoint, a restore into fresh state and the other half, on the
+    card under deterministic algorithms: the same losses and final
+    parameters, exactly. Then a checkpoint written on the CPU restored
+    onto the card equals the CPU's state exactly."""
+    from _train_check import to_device
+    from repro_torch.ckpt import restore_checkpoint
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_arch(TRAIN_RESUME_ARCH).make_smoke()
+    opt_cfg = AdamWConfig(lr=3e-3, warmup_steps=2,
+                          total_steps=TRAIN_RESUME_STEPS)
+    params = _cpu_params(cfg, 1)
+    kw = dict(log=lambda line: None, **TRAIN_SMOKE)
+    half = TRAIN_RESUME_STEPS // 2
+    # cuBLAS is deterministic on one stream with a fixed workspace; torch
+    # asks for the setting before it allows a GEMM in this mode
+    prev_ws = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            straight = train(cfg, opt_cfg, params=to_device(params, "cuda"),
+                             device="cuda", **kw)
+            first = train(cfg, opt_cfg, steps=half, ckpt_dir=d,
+                          params=to_device(params, "cuda"), device="cuda",
+                          **kw)
+            second = train(cfg, opt_cfg, ckpt_dir=d,
+                           params=to_device(params, "cuda"), device="cuda",
+                           **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if prev_ws is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev_ws
+    losses = torch.cat([first.losses, second.losses])
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(second.params), tree_leaves(straight.params)))
+    if (second.start, len(losses)) != (half, TRAIN_RESUME_STEPS) or \
+            not torch.equal(losses, straight.losses) or not same_params:
+        raise AssertionError(
+            f"train resume: {losses.tolist()} against "
+            f"{straight.losses.tolist()}, params equal {same_params}")
+    with tempfile.TemporaryDirectory() as d:
+        cpu = train(cfg, opt_cfg, steps=2, ckpt_dir=d,
+                    params=to_device(params, "cpu"), device="cpu", **kw)
+        fresh = to_device(params, "cuda")
+        back = restore_checkpoint(d, 1, {"params": fresh,
+                                         "opt": adamw_init(fresh)})
+    want = [cpu.opt.step, *tree_leaves(cpu.opt.m), *tree_leaves(cpu.opt.v),
+            *tree_leaves(cpu.params)]
+    got = [back["opt"].step, *tree_leaves(back["opt"].m),
+           *tree_leaves(back["opt"].v), *tree_leaves(back["params"])]
+    if not all(g.device.type == "cuda" and torch.equal(g.cpu(), w.detach())
+               for g, w in zip(got, want)):
+        raise AssertionError("a CPU checkpoint restored onto the card "
+                             "differs")
+    log(phase="train.resume", arch=TRAIN_RESUME_ARCH,
+        steps=TRAIN_RESUME_STEPS, resumed_at=half, **TRAIN_SMOKE,
+        losses=straight.losses.tolist(), equal=True,
+        cpu_checkpoint_on_card=dict(step=int(back["opt"].step), leaves=len(
+            got), equal=True))
+
+
+def train_full_phase(card: str) -> dict:
+    """Minitron-4B at its published widths and all 32 layers, bf16,
+    random weights from seed 0 (``train``'s): ``launch.train.train`` with
+    the reference driver's traffic for 20 steps, ``update_in_chunks`` and
+    remat. Logs init seconds, each step's ms (CUDA events; the median of
+    steps 3-20), tok/s, the model-FLOPs share, peak GiB and every loss and
+    grad norm; gates: all finite, grad norms > 0, peak under the card's
+    memory (running out of it fails the phase)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train
+    from repro_torch.optim.adamw import AdamWConfig
+
+    default_session().cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH).make_config(),
+                              remat=True)
+    free, total = torch.cuda.mem_get_info()
+    opt_cfg = AdamWConfig(**TRAIN_FULL_OPT)
+    lines = []
+    torch.cuda.reset_peak_memory_stats()
+    r = train(cfg, opt_cfg, log_every=10, log=lines.append, **TRAIN_FULL)
+    peak = torch.cuda.max_memory_allocated()
+    losses, gnorms = r.losses.tolist(), r.grad_norms.tolist()
+    finite = bool(torch.isfinite(r.losses).all()
+                  and torch.isfinite(r.grad_norms).all())
+    if not finite or min(gnorms) <= 0 or peak >= total:
+        raise AssertionError(f"train full: losses {losses}, grad norms "
+                             f"{gnorms}, peak {peak} of {total} bytes")
+    tokens = TRAIN_FULL["batch"] * TRAIN_FULL["seq_len"]
+    step_ms = float(np.median(r.step_ms[2:20]))
+    head = cfg.vocab * cfg.d_model
+    non_embedding = cfg.n_params - 2 * head
+    flops = 6 * non_embedding * tokens
+    out = dict(
+        card=card, arch=TRAIN_ARCH, layers=cfg.n_layers,
+        d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, d_ff=cfg.d_ff, act=cfg.act, vocab=cfg.vocab,
+        dtype=str(cfg.dtype), remat=cfg.remat, **TRAIN_FULL,
+        opt=TRAIN_FULL_OPT, n_params=cfg.n_params,
+        non_embedding_params=non_embedding, free_gb_before=free / 1e9,
+        init_seconds=r.init_s, step_ms=r.step_ms,
+        step_ms_median_3_20=step_ms, tok_s=tokens / (step_ms / 1e3),
+        mfu=flops / (step_ms / 1e3) / BF16_FLOPS_PER_S,
+        mfu_with_head=6 * (non_embedding + head) * tokens
+        / (step_ms / 1e3) / BF16_FLOPS_PER_S,
+        loop_seconds=r.seconds, peak_gib=peak / 2**30,
+        card_gib=total / 2**30, losses=losses, grad_norms=gnorms,
+        driver_log=lines, finite=True)
+    log(phase="train.full", **out)
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2815,6 +3033,12 @@ def main() -> int:
     mark("lm.card_vs_cpu")
     lm_serve_phase(card)
     mark("lm.serve")
+    train_card_vs_cpu_phase()
+    mark("train.card_vs_cpu")
+    train_resume_phase()
+    mark("train.resume")
+    train_full_phase(card)
+    mark("train.full")
     tune_dir.cleanup()
     for name, row in rows.items():
         row["launches"] = totals[SOURCES[name][2]]

@@ -94,6 +94,7 @@ def get_arch(arch_id: str) -> ArchSpec:
     if arch_id not in PORTED:
         raise NotImplementedError(
             f"arch {arch_id!r} is not ported yet: its model (GNN or recsys) "
-            "comes with the training substrate, ROADMAP Queue A item 11")
+            "comes with the next slice of the ML substrate, ROADMAP Queue A "
+            "item 11")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.ARCH

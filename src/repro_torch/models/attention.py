@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
@@ -80,11 +81,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B,Sq,H,D), k/v (B,Sk,Hk,D) -> (B,Sq,H,D). O(chunk^2) memory.
 
     The reference's chunk rules: a chunk is at most the sequence, and a
-    sequence its chunk does not divide runs as one chunk. ``remat_chunks``
-    (the reference's per-chunk ``jax.checkpoint``) only shapes a backward
-    pass; without autodiff here it is accepted and ignored.
+    sequence its chunk does not divide runs as one chunk. With
+    ``remat_chunks`` and a gradient to take, each (q-chunk x k-chunk)
+    update and each q-block run under ``torch.utils.checkpoint`` (the
+    reference's per-chunk and per-block ``jax.checkpoint``): backward
+    recomputes each score tile instead of saving all nq*nk of them, the
+    FlashAttention recompute scheme.
     """
-    del remat_chunks
     b, sq, h, d = q.shape
     _, sk, hk, _ = k.shape
     g = h // hk
@@ -96,22 +99,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q_chunk = sq
     if sk % k_chunk:
         k_chunk = sk
-    dev = q.device
-    outs = []
-    for q0 in range(0, sq, q_chunk):
-        qc = qg[:, q0:q0 + q_chunk]
+    remat = remat_chunks and torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+
+    def q_block(qc: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                q0: int) -> torch.Tensor:
+        dev = qc.device
         q_pos = torch.arange(q0, q0 + q_chunk, device=dev)
         carry = (torch.full((b, hk, g, q_chunk), _NEG_INF, device=dev),
                  torch.zeros((b, hk, g, q_chunk), device=dev),
                  torch.zeros((b, hk, g, q_chunk, d), device=dev))
         for k0 in range(0, sk, k_chunk):
             k_pos = torch.arange(k0, k0 + k_chunk, device=dev)
-            carry = _chunk_attn_block(qc, k[:, k0:k0 + k_chunk],
-                                      v[:, k0:k0 + k_chunk], carry, q_pos,
-                                      k_pos, causal, scale)
+            args = (qc, k[:, k0:k0 + k_chunk], v[:, k0:k0 + k_chunk], carry,
+                    q_pos, k_pos, causal, scale)
+            carry = (checkpoint(_chunk_attn_block, *args, use_reentrant=False)
+                     if remat else _chunk_attn_block(*args))
         _, l, acc = carry
         out = acc / l.clamp(min=1e-30)[..., None]         # (B,Hk,G,cq,D)
-        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, q_chunk, h, d))
+        return out.permute(0, 3, 1, 2, 4).reshape(b, q_chunk, h, d)
+
+    outs = []
+    for q0 in range(0, sq, q_chunk):
+        args = (qg[:, q0:q0 + q_chunk], k, v, q0)
+        outs.append(checkpoint(q_block, *args, use_reentrant=False)
+                    if remat else q_block(*args))
     return torch.cat(outs, dim=1).to(q.dtype)
 
 

@@ -3,14 +3,19 @@
 
 * Layers are stacked along axis 0, as in the reference's parameter tree,
   and run as a plain loop over layers (the reference's ``lax.scan``; its
-  remat and batch-sharding constraints have no meaning on one device and
-  without autodiff).
+  batch-sharding constraints have no meaning on one device). With
+  ``LMConfig.remat`` and a gradient to take, each layer runs under
+  ``torch.utils.checkpoint``, the reference's per-layer
+  ``jax.checkpoint``.
 * Attention is GQA with RoPE and flash-style chunked compute.
 * MoE layers use the capacity-bucketed block of ``moe.py``.
 * Parameter logical axes are emitted next to init, as in the reference.
 
-``TransformerLM`` holds the tree as module parameters under the
-reference's names and stacked ``(L, ...)`` shapes; ``params_from_numpy``
+``loss_fn`` is differentiable in a params dict whose float leaves require
+grad; the gradients come back in the same tree, stacked leaves stacked
+(``launch/train.py``). ``TransformerLM``, the inference wrapper, holds the
+tree as module parameters under the reference's names and stacked
+``(L, ...)`` shapes; ``params_from_numpy``
 carries a tree made by the reference (``jax.tree.map(np.asarray,
 params)``) across, so that both packages compute the same function.
 """
@@ -21,6 +26,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import common
@@ -163,7 +169,8 @@ class TransformerLM(torch.nn.Module):
     """The parameter tree as module parameters: ``embed``, ``lm_head``,
     ``final_norm`` and ``layers.<name>`` with stacked ``(L, ...)`` shapes,
     as the reference names them. Serving needs no gradient, so the
-    parameters are made with ``requires_grad=False``."""
+    parameters are made with ``requires_grad=False``; training works on
+    the functional params dict (``launch/train.py``)."""
 
     def __init__(self, cfg: LMConfig, params: dict):
         super().__init__()
@@ -194,6 +201,16 @@ class TransformerLM(torch.nn.Module):
 
 def _layer(params: dict, i: int) -> dict:
     return {k: v[i] for k, v in params["layers"].items()}
+
+
+def _layers(params: dict) -> list[dict]:
+    """Every layer's slice of the stacked leaves, as ``_layer`` gives it,
+    from one ``unbind`` a leaf: its backward stacks the L slices'
+    gradients once, where L separate slices would each write a zero-filled
+    gradient of the whole stack."""
+    stacks = {k: v.unbind(0) for k, v in params["layers"].items()}
+    n = len(next(iter(stacks.values())))
+    return [{k: t[i] for k, t in stacks.items()} for i in range(n)]
 
 
 def _embed(params: dict, tokens: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
@@ -228,20 +245,29 @@ def _ffn_block(x, lp, cfg: LMConfig, mesh=None):
     return x + y, aux
 
 
+def _block(x, lp, cfg: LMConfig, cos, sin, mesh):
+    x, kv = _attn_block(x, lp, cfg, cos, sin)
+    x, aux = _ffn_block(x, lp, cfg, mesh)
+    return x, aux, kv
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig, *,
             mesh=None, collect_kv: bool = False):
     """tokens (B, S) -> logits (B, S, V). Returns (logits, aux_loss,
     kv | None), kv the per-layer keys and values stacked ``(L, B, S, Hk,
-    D)`` each (for prefill)."""
+    D)`` each (for prefill). With ``cfg.remat`` and grad enabled, backward
+    recomputes each layer from its saved input."""
     _, s = tokens.shape
     x = _embed(params, tokens, cfg)
     cos, sin = rope_angles(torch.arange(s, device=x.device), cfg.head_dim,
                            cfg.rope_theta)
+    remat = cfg.remat and torch.is_grad_enabled() and (x.requires_grad or any(
+        v.requires_grad for v in params["layers"].values()))
     auxs, ks, vs = [], [], []
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
-        x, (k, v) = _attn_block(x, lp, cfg, cos, sin)
-        x, aux = _ffn_block(x, lp, cfg, mesh)
+    for lp in _layers(params)[:cfg.n_layers]:
+        args = (x, lp, cfg, cos, sin, mesh)
+        x, aux, (k, v) = (checkpoint(_block, *args, use_reentrant=False)
+                          if remat else _block(*args))
         auxs.append(aux)
         if collect_kv:
             ks.append(k)
@@ -253,8 +279,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig, *,
 
 
 def loss_fn(params: dict, batch: dict, cfg: LMConfig, **kw) -> tuple:
-    """Token cross-entropy plus the router's aux loss. (Its gradient path
-    comes with the training substrate.)"""
+    """Token cross-entropy plus the router's aux loss; differentiable in
+    the float leaves of ``params`` (``launch/train.py::build_step``)."""
     logits, aux, _ = forward(params, batch["tokens"], cfg, **kw)
     ce = common.cross_entropy(logits, batch["labels"], batch.get("mask"))
     aux_w = cfg.moe.router_aux_weight if cfg.moe else 0.0

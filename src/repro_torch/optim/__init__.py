@@ -1,0 +1,3 @@
+"""Optimizers: AdamW and gradient compression (``repro/optim``)."""
+from repro_torch.optim.adamw import (AdamWConfig, AdamWState,  # noqa: F401
+                                     adamw_init, adamw_update)

@@ -3,7 +3,9 @@
 colorings (host loop, outlined regime, distributed Pipe with the dense
 and the boundary exchange, traced runs, lane batching and the stream
 service, trips keyed by tile) and BFS on the card against the same runs
-on the CPU; the LM serving path's default device.
+on the CPU; the LM serving path's default device; the LM training path
+(a step card = CPU, an exact resume under deterministic algorithms, the
+default device).
 Needs a
 CUDA device and nvcc; skips without a device. Imports no JAX, so it runs
 where only PyTorch is installed:
@@ -747,3 +749,97 @@ def test_card_serve_defaults_to_the_card():
                                    step.numpy(), rtol=1e-4, atol=1e-4)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+# --- the LM training path ------------------------------------------------------
+
+def _smoke_params(arch, seed=0):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tfm
+    cfg = get_arch(arch).make_smoke()
+    params, _ = tfm.init_params(cfg, torch.Generator().manual_seed(seed),
+                                device="cpu")
+    return cfg, params
+
+
+@pytest.mark.parametrize("arch,compress", [("qwen3-moe-30b-a3b", False),
+                                           ("gemma-7b", False),
+                                           ("gemma-7b", True)])
+def test_card_train_step_equals_cpu(dev, arch, compress):
+    """One ``build_step`` step on the card and on the CPU from the same
+    weights, state and batch, fp32 with TF32 off, within
+    ``tests/_train_check.py``'s tolerances."""
+    from _train_check import step_gaps, to_device
+    from repro_torch.data.pipelines import TokenPipeline
+    from repro_torch.launch.train import build_step
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.optim.compression import compress_init
+    cfg, params = _smoke_params(arch)
+    opt_cfg = AdamWConfig(lr=3e-3, warmup_steps=20, total_steps=200)
+    batch = TokenPipeline(cfg.vocab, 16, 4).batch_at(0, "cpu")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for where in ("cpu", dev):
+            p = to_device(params, where)
+            b = {k: v.to(where) for k, v in batch.items()}
+            if compress:
+                p, o, _, m = build_step(cfg, opt_cfg, compress=True,
+                                        mesh=[where])(
+                    p, adamw_init(p), [compress_init(p)], b)
+            else:
+                p, o, m = build_step(cfg, opt_cfg)(p, adamw_init(p), b)
+            out[str(where)] = (p, o, m)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert out[str(dev)][2]["loss"].device.type == "cuda"
+    step_gaps(out[str(dev)], out["cpu"], wd=opt_cfg.weight_decay,
+              compressed=compress)
+
+
+def test_card_train_resume_is_exact(dev, tmp_path, monkeypatch):
+    """Under deterministic algorithms, 4 steps straight equal 2, a
+    checkpoint, a restore into fresh state and 2 more: the same losses
+    and parameters."""
+    from _train_check import to_device
+    from repro_torch.launch.train import train
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import tree_leaves
+    cfg, params = _smoke_params("minitron-4b", 1)
+    opt_cfg = AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=4)
+    kw = dict(batch=4, seq_len=16, log=lambda s: None)
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        straight = train(cfg, opt_cfg, params=to_device(params, dev), **kw)
+        first = train(cfg, opt_cfg, steps=2, ckpt_dir=str(tmp_path),
+                      params=to_device(params, dev), **kw)
+        second = train(cfg, opt_cfg, ckpt_dir=str(tmp_path),
+                       params=to_device(params, dev), **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert second.start == 2 and len(straight.step_ms) == 4
+    assert torch.equal(torch.cat([first.losses, second.losses]),
+                       straight.losses)
+    for a, b in zip(tree_leaves(second.params), tree_leaves(straight.params)):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+def test_card_train_defaults_to_the_card():
+    """``train`` and ``TokenPipeline.batch_at`` without a device run on
+    the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipelines import TokenPipeline
+    from repro_torch.launch.train import train
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import tree_leaves
+    cfg = get_arch("gemma-7b").make_smoke()
+    r = train(cfg, AdamWConfig(total_steps=2), batch=2, seq_len=8,
+              log=lambda s: None)
+    assert all(p.device.type == "cuda" for p in tree_leaves(r.params))
+    assert r.init_s is not None and len(r.step_ms) == 2
+    assert TokenPipeline(10, 4, 2).batch_at(0)["tokens"].device.type == \
+        "cuda"
