@@ -184,6 +184,23 @@ each failing the script on any error:
    step's ms (CUDA events at the step boundaries; the median of steps
    3-20), tok/s, the model-FLOPs share, peak GiB, every loss and grad
    norm; all finite, grad norms above 0, peak under the card's memory.
+10. gnn (last): the GNN and DLRM models (no kernel of this repo runs there:
+   the reference has none), their training steps composed as the
+   reference's ``launch/steps.py`` composes them (``tests/_gnn_steps.py``).
+   ``gnn.card_vs_cpu``: one smoke step of each of the five archs on the card
+   and on the CPU (fp32, TF32 off) within the CPU parity tests' tolerances,
+   ``sample_blocks`` and ``RecsysPipeline.batch_at`` card = CPU bit for
+   bit, ``forward_full_owner`` at four shards on the card = ``forward_full``;
+   ``gnn.molecule``: EquiformerV2, EGNN and SchNet at their published
+   configs on the padded ``molecule`` shape (4,096 nodes, 8,192 edges, 128
+   graphs), 20 steps each; ``gnn.minibatch``: GraphSAGE-Reddit on a random
+   graph at Reddit's sizes drawn and sorted into CSR on the card, 20 steps
+   of sample, loss, gradient and AdamW (fan-out 15-10, 1,024 seeds) and one
+   step's profile; ``recsys.train``: DLRM-RM2 (26 tables of 1M x 64, fp32)
+   at 65,536 rows, 20 steps with ``update_in_chunks``, then
+   ``retrieval_score`` over 1M candidates and ``forward`` at 262,144 rows.
+   Each logs step ms (the median of steps 3-20), its rate (graphs/s, seeds/s,
+   samples/s) and peak GiB; all losses and grad norms finite, norms above 0.
 
 The ``done`` line gives the seconds of each stretch of ``main``
 (``phase_seconds``).
@@ -2948,6 +2965,318 @@ def train_full_phase(card: str) -> dict:
     return out
 
 
+# --- the GNN and DLRM models -------------------------------------------------
+
+#: each full-width cell runs this many training steps; step ms is the
+#: median of steps 3-20
+GNN_STEPS = 20
+#: the ``molecule`` shape (30 nodes, 64 edges a graph, 128 graphs) padded
+#: as the reference's ``steps.py::gnn_full_case`` pads it (to 1,024)
+MOLECULE = dict(n_nodes=4096, n_edges=8192, n_graphs=128, d_feat=16)
+MOLECULE_ARCHS = ("equiformer-v2", "egnn", "schnet")
+#: ``minibatch_lg``: Reddit's sizes (232,965 nodes, 114,615,892 edges,
+#: both directions stored), 602 features, 41 classes; 1,024 seeds, fan-out
+#: 15-10. The graph is random at those sizes (no dataset is fetched)
+REDDIT = dict(n_nodes=232_965, n_entries=2 * 114_615_892, d_feat=602,
+              n_classes=41, batch_nodes=1024, fanout=(15, 10))
+#: ``train_batch``, ``serve_bulk`` and ``retrieval_cand`` of the recsys
+#: shapes
+DLRM_TRAIN_BATCH = 65_536
+DLRM_SERVE_BATCH = 262_144
+DLRM_CANDIDATES = 1_000_000
+
+
+def timed_steps(step, n: int) -> tuple[list, list]:
+    """``step(i)`` for i < n, a CUDA event at each step boundary: (each
+    step's ms, each step's return value). The events time the card's
+    timeline, so a step that waits for the host counts the wait."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    out = []
+    ev[0].record()
+    for i in range(n):
+        out.append(step(i))
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(n)], out
+
+
+def profile_once(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: device µs and
+    operations (the events on the card), the host's ATen calls, and the
+    device operations that take the most time."""
+    from torch.autograd import DeviceType
+
+    act = torch.profiler.ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    ev = p.key_averages()
+    on_card = sorted((e for e in ev if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    return dict(device_us=sum(e.self_device_time_total for e in on_card),
+                device_ops=sum(e.count for e in on_card),
+                host_ops=sum(e.count for e in ev
+                             if e.key.startswith("aten::")),
+                top=[[e.key, e.count, e.self_device_time_total]
+                     for e in on_card[:8]])
+
+
+def free_card() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def train_summary(card: str, step_ms: list, metrics: list, rate_name: str,
+                  per_step: int) -> dict:
+    """Step ms (each, and the median of steps 3-20), the rate, peak GiB,
+    every loss and grad norm; fails unless all are finite and every grad
+    norm is above 0."""
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    if not all(np.isfinite(losses + gnorms)) or min(gnorms) <= 0:
+        raise AssertionError(f"losses {losses}, grad norms {gnorms}")
+    med = float(np.median(step_ms[2:GNN_STEPS]))
+    return {"card": card, "steps": len(step_ms), "step_ms": step_ms,
+            "step_ms_median_3_20": med, rate_name: per_step / (med / 1e3),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "losses": losses, "grad_norms": gnorms, "finite": True}
+
+
+def gnn_card_vs_cpu_phase() -> None:
+    """The five GNN/DLRM smoke configs in fp32 (TF32 off): one train step
+    (the family's loss, its gradient, the default AdamW) on the card and
+    on the CPU from the same params and batch, within the CPU parity
+    tests' tolerances (``tests/_gnn_steps.py::card_cpu_gaps``);
+    ``sample_blocks`` and ``RecsysPipeline.batch_at`` on the card equal to
+    the CPU bit for bit; ``forward_full_owner`` at four shards on the card
+    equal to ``forward_full``."""
+    import _gnn_steps as gs
+
+    dev = torch.device("cuda")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for arch in gs.SMOKE_ARCHS:
+            log(phase="gnn.card_vs_cpu", arch=arch,
+                gaps=gs.step_card_vs_cpu(arch, dev),
+                tol=dict(loss=gs.LOSS_RTOL, grads=gs.GRAD_TOL,
+                         attn=gs.ATTN_GRAD_TOL, params=gs.PARAM_TOL),
+                equal=True)
+        log(phase="gnn.card_vs_cpu", what="sample_blocks",
+            **gs.sampler_card_vs_cpu(dev), equal=True)
+        log(phase="gnn.card_vs_cpu", what="RecsysPipeline",
+            **gs.pipeline_card_vs_cpu(dev), equal=True)
+        log(phase="gnn.card_vs_cpu", what="forward_full_owner", shards=4,
+            max_abs_err=gs.owner_card(dev), tol=1e-5, equal=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def gnn_molecule_phase(card: str) -> None:
+    """EquiformerV2, EGNN and SchNet at their published configs on the
+    ``molecule`` shape as ``steps.py`` pads it (4,096 nodes, 8,192 edges,
+    128 graphs, 16 features), fp32, the batch from ``random_graph_batch``
+    with threefry key 0, the targets from key 1: ``GNN_STEPS`` steps of the
+    family's loss, gradient and the default AdamW. Logs each step's ms,
+    graphs/s at the median, peak GiB, every loss and grad norm, and one
+    more step's profile."""
+    import _gnn_steps as gs
+    from repro_torch.configs import get_arch
+    from repro_torch.data import pipelines as rnd
+    from repro_torch.models.gnn.common import random_graph_batch
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    m = MOLECULE
+    for arch in MOLECULE_ARCHS:
+        free_card()
+        cfg = get_arch(arch).make_config()
+        if arch == "egnn":
+            cfg = dataclasses.replace(cfg, d_in=m["d_feat"])
+        t0 = time.perf_counter()
+        batch = random_graph_batch(rnd.prng_key(0), m["n_nodes"],
+                                   m["n_edges"], m["d_feat"], coords=True,
+                                   n_graphs=m["n_graphs"])
+        targets = torch.from_numpy(rnd.normal(rnd.prng_key(1),
+                                              (m["n_graphs"],))).cuda()
+        params, _ = gs.GNN_MODS[arch].init_params(cfg)
+        opt = adamw_init(params)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        step = gs.full_step(arch, cfg, AdamWConfig())
+        state = [params, opt]
+
+        def one(i):
+            state[0], state[1], met = step(state[0], state[1], batch,
+                                           targets)
+            return met
+
+        ms, metrics = timed_steps(one, GNN_STEPS)
+        out = train_summary(card, ms, metrics, "graphs_s", m["n_graphs"])
+        log(phase="gnn.molecule", arch=arch, **m, config={
+            k: v for k, v in dataclasses.asdict(cfg).items()
+            if k != "dtype"}, n_params=sum(p.numel() for p in
+                                           params.values()),
+            init_seconds=init_s, profile_one_step=profile_once(
+                lambda: one(GNN_STEPS)), **out)
+        del params, opt, state, batch, metrics
+    free_card()
+
+
+def gnn_minibatch_phase(card: str) -> None:
+    """GraphSAGE-Reddit on ``minibatch_lg``: a random graph at Reddit's
+    sizes, drawn on the card from a seeded ``torch.Generator``
+    (``random_graph_batch``'s generator path) and sorted into CSR there;
+    ``GNN_STEPS`` steps of ``sample_blocks`` (fan-out 15-10 over 1,024
+    seeds drawn on the card), ``loss_sampled``, its gradient and the
+    default AdamW. Logs the build seconds and peak, each step's ms,
+    seeds/s, peak GiB, and one step's profile."""
+    import _gnn_steps as gs
+    from repro_torch.configs import get_arch
+    from repro_torch.data import pipelines as rnd
+    from repro_torch.models.gnn import graphsage
+    from repro_torch.models.gnn.common import random_graph_batch
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    r = REDDIT
+    free_card()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    g = random_graph_batch(gen, r["n_nodes"], r["n_entries"], r["d_feat"],
+                           n_classes=r["n_classes"])
+    row_ptr, col_idx = gs.csr_from_edges(g.edge_src, g.edge_dst,
+                                         r["n_nodes"])
+    feats, labels = g.node_feat, g.node_label
+    del g
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated() / 2**30
+    if int(row_ptr[-1]) != r["n_entries"]:
+        raise AssertionError("minibatch: the CSR lost entries")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_arch("graphsage-reddit").make_config(),
+                              fanouts=r["fanout"], d_in=r["d_feat"])
+    params, _ = graphsage.init_params(cfg)
+    opt = adamw_init(params)
+    seed_gen = torch.Generator(device="cuda")
+    seed_gen.manual_seed(1)
+    seeds = [torch.randint(0, r["n_nodes"], (r["batch_nodes"],),
+                           generator=seed_gen, device="cuda",
+                           dtype=torch.int32) for _ in range(GNN_STEPS + 1)]
+    step = gs.minibatch_step("graphsage-reddit", cfg, AdamWConfig(),
+                             r["fanout"])
+    state = [params, opt]
+
+    def one(i):
+        state[0], state[1], met = step(state[0], state[1], feats, None,
+                                       labels, row_ptr, col_idx, seeds[i],
+                                       rnd.fold_in(rnd.prng_key(0), i))
+        return met
+
+    ms, metrics = timed_steps(one, GNN_STEPS)
+    out = train_summary(card, ms, metrics, "seeds_s", r["batch_nodes"])
+    prof = profile_once(lambda: one(GNN_STEPS))
+    log(phase="gnn.minibatch", arch="graphsage-reddit", **r, config={
+        k: v for k, v in dataclasses.asdict(cfg).items() if k != "dtype"},
+        build_seconds=build_s, build_peak_gib=build_peak,
+        graph_gb=dict(col_idx=col_idx.numel() * 4 / 1e9,
+                      feats=feats.numel() * 4 / 1e9),
+        profile_one_step=prof, **out)
+    del params, opt, state, row_ptr, col_idx, feats, labels, seeds, metrics
+    free_card()
+
+
+def recsys_train_phase(card: str) -> None:
+    """DLRM-RM2 at its published config (26 tables of 1,000,000 x 64,
+    fp32) on ``train_batch``: ``GNN_STEPS`` steps of the loss, its
+    gradient and AdamW with ``update_in_chunks`` (a table at a time) on
+    ``RecsysPipeline`` batches (made before the timed loop, their ms
+    logged) and one more step's profile. Then one ``retrieval_score`` over
+    ``retrieval_cand``'s 1,000,000 candidates and one ``forward`` at
+    ``serve_bulk``'s 262,144 rows (ms each, CUDA events, under
+    ``inference_mode``)."""
+    import _gnn_steps as gs
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipelines import RecsysPipeline
+    from repro_torch.models import dlrm
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    free_card()
+    cfg = get_arch("dlrm-rm2").make_config()
+    t0 = time.perf_counter()
+    params, _ = dlrm.init_params(cfg)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pipe = RecsysPipeline(cfg.n_dense, cfg.n_sparse, cfg.vocab_per_table,
+                          DLRM_TRAIN_BATCH)
+    t0 = time.perf_counter()
+    batches = [pipe.batch_at(i) for i in range(GNN_STEPS)]
+    torch.cuda.synchronize()
+    pipeline_ms = (time.perf_counter() - t0) * 1e3 / GNN_STEPS
+    opt_cfg = AdamWConfig(update_in_chunks=True)
+    step = gs.dlrm_step(cfg, opt_cfg)
+    state = [params, opt]
+
+    def one(i):
+        state[0], state[1], met = step(state[0], state[1], batches[i])
+        return met
+
+    ms, metrics = timed_steps(one, GNN_STEPS)
+    out = train_summary(card, ms, metrics, "samples_s", DLRM_TRAIN_BATCH)
+    prof = profile_once(lambda: one(0))
+    del batches, metrics
+    with torch.inference_mode():
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(2)
+        cands = torch.randn((DLRM_CANDIDATES, cfg.embed_dim), device="cuda",
+                            generator=gen)
+        q = pipe.batch_at(GNN_STEPS)
+        scores = dlrm.retrieval_score(params, q["dense"][:1],
+                                      q["sparse"][:1], cands, cfg)
+        retrieval_ms = cuda_ms(lambda: dlrm.retrieval_score(
+            params, q["dense"][:1], q["sparse"][:1], cands, cfg))
+        bulk = RecsysPipeline(cfg.n_dense, cfg.n_sparse,
+                              cfg.vocab_per_table, DLRM_SERVE_BATCH
+                              ).batch_at(0)
+        logits = dlrm.forward(params, bulk["dense"], bulk["sparse"], cfg)
+        bulk_ms = cuda_ms(lambda: dlrm.forward(params, bulk["dense"],
+                                               bulk["sparse"], cfg), reps=5)
+        finite = bool(torch.isfinite(scores).all()
+                      and torch.isfinite(logits).all())
+    if not finite or scores.shape != (DLRM_CANDIDATES,) or \
+            logits.shape != (DLRM_SERVE_BATCH,):
+        raise AssertionError("dlrm serve: non-finite or misshapen output")
+    log(phase="recsys.train", arch="dlrm-rm2", batch=DLRM_TRAIN_BATCH,
+        n_params=cfg.n_params, table_gb=cfg.n_sparse * cfg.vocab_per_table
+        * cfg.embed_dim * 4 / 1e9, init_seconds=init_s,
+        pipeline_ms_per_batch=pipeline_ms, opt=dict(update_in_chunks=True),
+        profile_one_step=prof,
+        retrieval=dict(candidates=DLRM_CANDIDATES, ms=retrieval_ms),
+        serve_bulk=dict(batch=DLRM_SERVE_BATCH, ms=bulk_ms,
+                        samples_s=DLRM_SERVE_BATCH / (bulk_ms / 1e3)),
+        **out)
+    del params, opt, state, cands, bulk, logits, scores
+    free_card()
+
+
+def gnn_phase(card: str, mark) -> None:
+    """Phase 10: the GNN and DLRM models (no kernel of this repo: the
+    reference has none there)."""
+    gnn_card_vs_cpu_phase()
+    mark("gnn.card_vs_cpu")
+    gnn_molecule_phase(card)
+    mark("gnn.molecule")
+    gnn_minibatch_phase(card)
+    mark("gnn.minibatch")
+    recsys_train_phase(card)
+    mark("recsys.train")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3039,6 +3368,7 @@ def main() -> int:
     mark("train.resume")
     train_full_phase(card)
     mark("train.full")
+    gnn_phase(card, mark)
     tune_dir.cleanup()
     for name, row in rows.items():
         row["launches"] = totals[SOURCES[name][2]]

@@ -4,9 +4,9 @@ the paper's own engine.
 Each config module exposes ``ARCH: ArchSpec`` with the exact published
 config, a reduced smoke config, and its assigned input-shape set. Select
 with ``--arch <id>`` in the launchers. Every config is built from this
-package's own files at random init; no model is fetched. The port has the
-five LM archs and ``paper-ipgc``; the GNN and recsys archs wait for their
-models (ROADMAP Queue A item 11) and ``get_arch`` raises for them.
+package's own files at random init; no model is fetched. Every arch of
+the reference is ported: the five LMs, the four GNNs, DLRM and
+``paper-ipgc``.
 """
 from __future__ import annotations
 
@@ -83,18 +83,8 @@ _MODULES = {
 ARCH_IDS = [a for a in _MODULES if a != "paper-ipgc"]
 
 
-#: the archs whose models are ported
-PORTED = ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b", "nemotron-4-340b",
-          "gemma-7b", "minitron-4b", "paper-ipgc")
-
-
 def get_arch(arch_id: str) -> ArchSpec:
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {list(_MODULES)}")
-    if arch_id not in PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet: its model (GNN or recsys) "
-            "comes with the next slice of the ML substrate, ROADMAP Queue A "
-            "item 11")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.ARCH

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -75,6 +76,41 @@ class ParamFactory:
     def ones(self, shape, axes, dtype=None) -> tuple[torch.Tensor, tuple]:
         return (torch.ones(shape, dtype=dtype or self.dtype,
                            device=self.device), tuple(axes))
+
+
+def init_factory(generator: "torch.Generator | None", dtype, device
+                 ) -> ParamFactory:
+    """The factory a family's ``init_params`` draws from: on ``device``
+    (None: the CUDA device; ``"meta"``: shapes only), from ``generator``
+    (None: one seeded with 0 on the device)."""
+    dev = torch.device("meta") if device is not None and \
+        torch.device(device).type == "meta" else resolve_device(device)
+    if generator is None and dev.type != "meta":
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(0)
+    return ParamFactory(generator, dtype, dev)
+
+
+def _tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
+    """A torch tensor of ``a`` on ``device``; a bfloat16 array (the
+    ``ml_dtypes`` type NumPy arrays of JAX's bf16 carry) goes across bit
+    for bit."""
+    a = np.array(a, order="C")           # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_numpy(tree: dict, *, device=None) -> dict:
+    """The reference's parameter tree as NumPy arrays (``jax.tree.map(
+    np.asarray, params)``) -> the port's tree of tensors on ``device``
+    (None: the CUDA device), same names, shapes and dtypes. Serves every
+    family (LM, GNN, DLRM)."""
+    dev = resolve_device(device)
+    return {k: params_from_numpy(v, device=dev) if isinstance(v, dict)
+            else _tensor_from_numpy(np.asarray(v), dev)
+            for k, v in tree.items()}
 
 
 def _is_pair(x) -> bool:

@@ -15,21 +15,22 @@
 grad; the gradients come back in the same tree, stacked leaves stacked
 (``launch/train.py``). ``TransformerLM``, the inference wrapper, holds the
 tree as module parameters under the reference's names and stacked
-``(L, ...)`` shapes; ``params_from_numpy``
-carries a tree made by the reference (``jax.tree.map(np.asarray,
-params)``) across, so that both packages compute the same function.
+``(L, ...)`` shapes; ``params_from_numpy`` (``models/common.py``,
+re-exported here) carries a tree made by the reference
+(``jax.tree.map(np.asarray, params)``) across, so that both packages
+compute the same function.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
 
-import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import common
+from repro_torch.models.common import params_from_numpy  # noqa: F401
 from repro_torch.models.attention import (KVCache, apply_rope,
                                           decode_attention,
                                           decode_attention_q8,
@@ -142,27 +143,6 @@ def init_params(cfg: LMConfig, generator: "torch.Generator | None" = None,
         "layers": layers,
     }
     return common.split_tree(tree)
-
-
-def _tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
-    """A torch tensor of ``a`` on ``device``; a bfloat16 array (the
-    ``ml_dtypes`` type NumPy arrays of JAX's bf16 carry) goes across bit
-    for bit."""
-    a = np.array(a, order="C")           # a writable copy
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16)).view(
-            torch.bfloat16).to(device)
-    return torch.from_numpy(a).to(device)
-
-
-def params_from_numpy(tree: dict, *, device=None) -> dict:
-    """The reference's parameter tree as NumPy arrays (``jax.tree.map(
-    np.asarray, params)``) -> the port's tree of tensors on ``device``
-    (None: the CUDA device), same names, shapes and dtypes."""
-    dev = resolve_device(device)
-    return {k: params_from_numpy(v, device=dev) if isinstance(v, dict)
-            else _tensor_from_numpy(np.asarray(v), dev)
-            for k, v in tree.items()}
 
 
 class TransformerLM(torch.nn.Module):

@@ -54,7 +54,12 @@ def tree_unflatten(like, leaves: Iterable):
         if isinstance(t, (list, tuple)):
             return type(t)(build(v) for v in t)
         return next(it)
-    return build(like)
+    out = build(like)
+    # ``build`` refers to itself through its closure cell, a cycle that
+    # would keep ``leaves`` (a step's gradients) alive until the garbage
+    # collector runs; emptying the cell breaks it
+    del build
+    return out
 
 
 def tree_map(fn: Callable, tree):

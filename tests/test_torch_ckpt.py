@@ -354,14 +354,14 @@ sys.path[:0] = ["src", "tests", "."]
 import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
-import chip_smoke, _train_check, profile_train
+import chip_smoke, _train_check, _gnn_steps, profile_train
 print("NO_JAX_OK")
 """
 
 
 def test_port_and_chip_smoke_import_no_jax_or_repro():
     """Every module of ``repro_torch``, ``chip_smoke.py``,
-    ``profile_train.py`` and the card checks' helper import with ``jax``
+    ``profile_train.py`` and the card checks' helpers import with ``jax``
     and ``repro`` unimportable."""
     import subprocess
     import sys

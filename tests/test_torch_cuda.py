@@ -5,7 +5,8 @@ and the boundary exchange, traced runs, lane batching and the stream
 service, trips keyed by tile) and BFS on the card against the same runs
 on the CPU; the LM serving path's default device; the LM training path
 (a step card = CPU, an exact resume under deterministic algorithms, the
-default device).
+default device); the GNN and DLRM models (a smoke step of each family, the
+sampler and ``RecsysPipeline`` card = CPU, the default device).
 Needs a
 CUDA device and nvcc; skips without a device. Imports no JAX, so it runs
 where only PyTorch is installed:
@@ -843,3 +844,49 @@ def test_card_train_defaults_to_the_card():
     assert r.init_s is not None and len(r.step_ms) == 2
     assert TokenPipeline(10, 4, 2).batch_at(0)["tokens"].device.type == \
         "cuda"
+
+
+# --- the GNN and DLRM models --------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["equiformer-v2", "egnn", "schnet",
+                                  "graphsage-reddit", "dlrm-rm2"])
+def test_card_gnn_step_equals_cpu(dev, arch):
+    """One smoke train step of each GNN/DLRM family on the card and on
+    the CPU from the same params and batch, fp32 with TF32 off, within the
+    CPU parity tests' tolerances (``tests/_gnn_steps.py``)."""
+    from _gnn_steps import step_card_vs_cpu
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        step_card_vs_cpu(arch, dev)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def test_card_sampler_and_pipeline_equal_cpu(dev):
+    """``sample_blocks``, ``blocks_to_graphbatch`` and
+    ``RecsysPipeline.batch_at`` on the card equal the CPU bit for bit;
+    ``forward_full_owner`` at four shards on the card equals
+    ``forward_full``."""
+    from _gnn_steps import owner_card, pipeline_card_vs_cpu, \
+        sampler_card_vs_cpu
+    sampler_card_vs_cpu(dev)
+    pipeline_card_vs_cpu(dev)
+    owner_card(dev)
+
+
+def test_card_gnn_defaults_to_the_card():
+    """The GNN/DLRM entry points without a device run on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipelines import RecsysPipeline, prng_key
+    from repro_torch.models import dlrm
+    from repro_torch.models.gnn import schnet
+    from repro_torch.models.gnn.common import random_graph_batch
+    p, _ = schnet.init_params(get_arch("schnet").make_smoke())
+    b = random_graph_batch(prng_key(0), 8, 16, 2, coords=True)
+    assert schnet.forward(p, b, get_arch("schnet").make_smoke()).is_cuda
+    p, _ = dlrm.init_params(get_arch("dlrm-rm2").make_smoke())
+    assert p["tables"].is_cuda
+    assert RecsysPipeline(3, 2, 10, 4).batch_at(0)["sparse"].is_cuda

@@ -216,8 +216,7 @@ def test_arch_registry():
     assert ARCH_IDS == J_ARCH_IDS
     for arch in ("equiformer-v2", "egnn", "schnet", "graphsage-reddit",
                  "dlrm-rm2"):
-        with pytest.raises(NotImplementedError, match="Queue A item 11"):
-            get_arch(arch)
+        assert get_arch(arch).family == jget_arch(arch).family
     with pytest.raises(KeyError):
         get_arch("nope")
     ipgc = get_arch("paper-ipgc")
