@@ -20,12 +20,16 @@ each failing the script on any error:
    where one PyTorch call computes the same function, that call. A
    kernel the reference tiles runs at the ``tile_rows`` its main-path
    call had (a recorded call keeps it; the kernels line's ``tile_rows``)
-   and again at the default block (``default_ms``). The
-   kernels that gather the neighbours themselves (``conflict``,
-   ``fused_compact``, ``fused_step``) are also timed against the gathers
-   their earlier signature needed (``gather_ms``), and at the items block
-   of the kron sparse steps' most-used capacity bucket (recorded during
-   the ipgc runs of phases 3 and 4), as is ``compact``; ``compact`` (one
+   and again at the default block (``default_ms``). The five row
+   kernels gather the neighbours themselves (``mex_window``,
+   ``conflict``, ``fused_compact``, ``fused_step``, ``jpl_extrema``:
+   their rows are recorded from the main path's steps) and are also timed
+   against the gathers their earlier signature needed (``gather_ms``),
+   and at the items block of the kron sparse steps' most-used capacity
+   bucket (recorded during the ipgc and jpl runs of phases 3 and 4), as
+   is ``compact``; their edge cases include ids within 4,096 of
+   2**31 - 1 over an 8-GiB colors vector (``kernels.huge_ids``) and both
+   ``jpl_extrema`` sources at rounds 0, 1, 7 and 9999; ``compact`` (one
    launch, a decoupled look-back) also repeats 100 times at 2**21 and
    50.8M flags, bit-equal every time; the five row kernels the
    reference tiles (``mex_window``, ``conflict``, ``fused_compact``,
@@ -55,7 +59,11 @@ each failing the script on any error:
    card (``color(mode="dist-hybrid")``, the four colorings; ipgc fused
    runs the no-hub ``fused_step`` over 50.8M rows); launch and exchange
    counts per run (1 exchange per fused iteration and JPL round, 2 per
-   two-phase one), a verified coloring, and a replay of each under sync
+   two-phase one), on kron the two-phase run's ``mex_window`` calls and
+   the jpl run's ``jpl_extrema`` calls held against their plain twins at
+   a shard's dense shape and the most-used sparse one
+   (``kernels.dist_shapes`` lines), a verified coloring, and a replay of
+   each under sync
    debug "error" (spec-greedy's runs the ipgc fused steps, replayed
    already; the kron jpl run stops at 64 of its 815 rounds,
    ``DIST_ROUND_CAP``, to leave time for the other phases: its partial
@@ -234,7 +242,6 @@ sys.path.insert(0, os.path.join(ROOT, "tests"))
 import repro_torch  # noqa: E402
 from repro_torch.algos import get_algorithm  # noqa: E402
 from repro_torch.algos.base import init_ipgc_state  # noqa: E402
-from repro_torch.algos.jpl import round_hash  # noqa: E402
 from repro_torch.core import bfs as bfs_mod  # noqa: E402
 from repro_torch.core import distributed as dist  # noqa: E402
 from repro_torch.core import ipgc, jpl_color, vb_color  # noqa: E402
@@ -260,12 +267,16 @@ from repro_torch.kernels.fused_compact import \
     fused_compact_rows_plain  # noqa: E402
 from repro_torch.kernels.fused_step import \
     fused_step_rows_plain  # noqa: E402
-from repro_torch.kernels.jpl_prio import jpl_extrema_plain  # noqa: E402
-from repro_torch.kernels.mex_window import mex_window_plain  # noqa: E402
+from repro_torch.kernels.jpl_prio import (Hash, Table,  # noqa: E402
+                                          jpl_extrema_rows_plain,
+                                          round_hash)
+from repro_torch.kernels.mex_window import \
+    mex_window_rows_plain  # noqa: E402
 from repro_torch.kernels import tune  # noqa: E402
 from repro_torch.serve import ManualClock, StreamConfig  # noqa: E402
 
-from _gather_cases import gather_case, gathered  # noqa: E402
+from _gather_cases import (gather_case, gathered,  # noqa: E402
+                           jpl_prio_table)
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the non-tensor-core
 #: 32-bit vector rate (67 TFLOP/s) as the rate of the kernels' integer work
@@ -374,26 +385,11 @@ def edge_cases(dev) -> None:
     def t(a):
         return None if a is None else torch.from_numpy(np.asarray(a)).to(dev)
 
-    for r in (1, 7, 257, 3000):
-        for k in (1, 8, 40, 128):
-            for w in (32, 128, 256):
-                nc = rng.integers(-2, 300, size=(r, k)).astype(np.int32)
-                base = (rng.integers(0, 4, size=r) * w).astype(np.int32)
-                extra = rng.random((r, w)) < 0.25
-                for e in (None, extra):
-                    assert_equal(ops.mex_window(t(nc), t(base), t(e), w),
-                                 mex_window_plain(t(nc), t(base), t(e), w),
-                                 f"mex_window r={r} k={k} w={w}")
     gather_edge_cases(dev)
+    huge_id_cases(dev)
     compact_edge_cases(dev, rng)
     for r in (0, 1, 7, 257, 3000):
         for k in (1, 3, 8, 40, 128):
-            for inactive in (0.3, 1.0):
-                npr = rng.integers(0, 2**31 - 1, size=(r, k)).astype(np.int32)
-                npr = np.where(rng.random((r, k)) < inactive, -1, npr)
-                x = t(npr.astype(np.int32))
-                assert_equal(ops.jpl_extrema(x), jpl_extrema_plain(x),
-                             f"jpl_extrema r={r} k={k}")
             nbr = t(rng.random((r, k)) < 0.05)
             for unvisited in (t(rng.random(r) < 0.6),
                               torch.ones(r, dtype=torch.bool, device=dev)):
@@ -401,9 +397,6 @@ def edge_cases(dev) -> None:
                              frontier_probe_plain(nbr, unvisited),
                              f"frontier_probe r={r} k={k}")
             if r > 1:     # unaligned tiles take the narrow loads
-                y = x.reshape(-1)[1:][:(r - 1) * k].reshape(r - 1, k)
-                assert_equal(ops.jpl_extrema(y), jpl_extrema_plain(y),
-                             f"jpl_extrema unaligned r={r} k={k}")
                 z = nbr.reshape(-1)[1:][:(r - 1) * k].reshape(r - 1, k)
                 u = unvisited[1:]
                 assert_equal(ops.frontier_probe(z, u),
@@ -452,20 +445,41 @@ def compact_edge_cases(dev, rng) -> None:
         repeats=COMPACT_REPEATS, bit_equal=True)
 
 
+#: the operands of the gathering kernels in a ``gather_case``, by kernel
+CONFLICT_NAMES = ("colors", "priority", "ell", "rows", "cu", "pu", "ids",
+                  "newly")
+FUSED_NAMES = ("colors", "priority", "ell", "rows", "base", "cu", "pu", "ids",
+               "active", "pending", "hub_forb", "hub_lose", "hub_slot")
+STEP_NAMES = FUSED_NAMES[:8] + FUSED_NAMES[9:]
+MEX_NAMES = ("colors", "ell", "rows", "base", "active", "hub_forb",
+             "hub_slot")
+#: the JPL rounds whose hash the ``jpl_extrema`` checks take
+JPL_ROUNDS = (0, 1, 7, 9999)
+
+
+def jpl_sources(c, prio, dev) -> list:
+    """The ``jpl_extrema`` sources of case ``c``: its priority table, and
+    the hash of its colors at each of ``JPL_ROUNDS``."""
+    return [Table(prio)] + [
+        Hash(torch.from_numpy(c["colors"]).to(dev),
+             torch.tensor(rnd, dtype=torch.int32, device=dev))
+        for rnd in JPL_ROUNDS]
+
+
+def source_name(src) -> str:
+    return ("table" if isinstance(src, Table)
+            else f"hash rnd={int(src.rnd)}")
+
+
 def gather_edge_cases(dev) -> None:
-    """conflict, fused_compact and fused_step, which gather the neighbours
-    themselves: rows None or sparse with sentinels, hub and no-hub, rows of
-    length 0, < K and K, R = 0, empty/full activity, exhausted windows,
-    truncating and padding capacities, 16-byte and one-entry ELL loads."""
+    """The five kernels that gather the neighbours themselves: rows None
+    or sparse with sentinels, hub and no-hub, rows of length 0, < K and K,
+    R = 0, empty/full activity, exhausted windows, truncating and padding
+    capacities, both ``jpl_extrema`` sources at rounds 0, 1, 7 and 9999,
+    16-byte and one-entry ELL loads."""
     def t(a):
         return None if a is None else torch.from_numpy(np.asarray(a)).to(dev)
 
-    conflict_names = ("colors", "priority", "ell", "rows", "cu", "pu", "ids",
-                      "newly")
-    fused_names = ("colors", "priority", "ell", "rows", "base", "cu", "pu",
-                   "ids", "active", "pending", "hub_forb", "hub_lose",
-                   "hub_slot")
-    step_names = fused_names[:8] + fused_names[9:]
     for rg in (0, 1, 7, 257, 3000):
         for k in (1, 3, 8, 40, 128):
             for w in (1, 32, 128, 256):
@@ -477,14 +491,15 @@ def gather_edge_cases(dev) -> None:
                         r = len(c["cu"])
                         what = (f"rg={rg} k={k} w={w} sparse={sparse} "
                                 f"hub={hub}")
-                        args = [t(c[n]) for n in conflict_names]
+                        args = [t(c[n]) for n in CONFLICT_NAMES]
                         assert_equal(ops.conflict(*args),
                                      conflict_rows_plain(*args),
                                      f"conflict {what}")
-                        step = [t(c[n]) for n in step_names]
+                        step = [t(c[n]) for n in STEP_NAMES]
                         got = ops.fused_step(*step, w)
                         assert_equal(got, fused_step_rows_plain(*step, w),
                                      f"fused_step {what}")
+                        full = None
                         if hub:
                             # rows at an all-forbidden hub row: first = -1
                             full = gathered(c)["extra"].all(axis=1)
@@ -492,11 +507,32 @@ def gather_edge_cases(dev) -> None:
                                 raise AssertionError(
                                     f"fused_step {what}: a full window did "
                                     "not give -1")
-                        for act_p in (0.0, 1.0, None):
+                        sources = []
+                        if w == 1 and not hub:      # jpl reads no window
+                            sources = jpl_sources(
+                                c, t(jpl_prio_table(c, rg + k + sparse)),
+                                dev)
+                            for src in sources:
+                                a = (t(c["ell"]), t(c["rows"]), src)
+                                assert_equal(ops.jpl_extrema(*a),
+                                             jpl_extrema_rows_plain(*a),
+                                             f"jpl_extrema {what} "
+                                             f"{source_name(src)}")
+                        for act_p in (None, 0.0, 1.0):
                             if act_p is not None:
                                 c["active"] = np.full(r, act_p > 0)
                                 c["pending"] = c["active"] & (c["cu"] >= 0)
-                            case = [t(c[n]) for n in fused_names]
+                            mex = [t(c[n]) for n in MEX_NAMES]
+                            first = ops.mex_window(*mex, w)
+                            assert_equal(first,
+                                         mex_window_rows_plain(*mex, w),
+                                         f"mex_window {what} active={act_p}")
+                            if full is not None and not (
+                                    first.cpu().numpy()[full] == -1).all():
+                                raise AssertionError(
+                                    f"mex_window {what}: a full window did "
+                                    "not give -1")
+                            case = [t(c[n]) for n in FUSED_NAMES]
                             for cap in (max(r, 1), max(r // 3, 1), r + 5):
                                 assert_equal(
                                     ops.fused_compact(*case, w, capacity=cap,
@@ -511,7 +547,8 @@ def gather_edge_cases(dev) -> None:
                             x = torch.empty(flat.numel() + 1,
                                             dtype=flat.dtype, device=dev)
                             x[1:] = flat
-                            args[2] = case[2] = step[2] = x[1:].view(rg, k)
+                            ell = x[1:].view(rg, k)
+                            args[2] = case[2] = step[2] = mex[1] = ell
                             assert_equal(ops.conflict(*args),
                                          conflict_rows_plain(*args),
                                          f"conflict unaligned {what}")
@@ -525,26 +562,100 @@ def gather_edge_cases(dev) -> None:
                                     *case, w, capacity=r,
                                     n_sentinel=c["n"]),
                                 f"fused_compact unaligned {what}")
+                            assert_equal(ops.mex_window(*mex, w),
+                                         mex_window_rows_plain(*mex, w),
+                                         f"mex_window unaligned {what}")
+                            for src in sources:
+                                a = (ell, t(c["rows"]), src)
+                                assert_equal(ops.jpl_extrema(*a),
+                                             jpl_extrema_rows_plain(*a),
+                                             f"jpl_extrema unaligned {what} "
+                                             f"{source_name(src)}")
 
 
-def items_rows(args) -> "int | None":
+#: the node count of ``huge_id_cases``: the pad id is the largest int32
+HUGE_N = 2**31 - 1
+
+
+def huge_id_cases(dev) -> None:
+    """``jpl_extrema`` (both sources, each round of ``JPL_ROUNDS``) and
+    ``mex_window`` over neighbour ids within 4,096 of 2**31 - 1: a colors
+    vector of ``HUGE_N + 1`` int32 (8 GiB, written only where it is read),
+    an ELL of left-packed rows of such ids (pad ``HUGE_N``), rows None and
+    sparse with sentinels; the vector doubles as the priority table."""
+    rng = np.random.default_rng(5)
+    n, rg, k, w = HUGE_N, 300, 8, 32
+    top = 4096
+    ell = np.full((rg, k), n, np.int64)
+    for r, d in enumerate(rng.integers(0, k + 1, size=rg)):
+        ell[r, :d] = np.sort(rng.choice(top, size=d, replace=False)) + n - top
+    colors = torch.empty(n + 1, dtype=torch.int32, device=dev)
+    colors[n - top:n] = torch.from_numpy(
+        rng.integers(-1, 12, size=top).astype(np.int32)).to(dev)
+    colors[n] = int(ipgc.PAD_COLOR)
+    ell_t = torch.from_numpy(ell.astype(np.int32)).to(dev)
+    sparse = torch.from_numpy(rng.integers(0, rg + 3, size=rg + 40)
+                              .astype(np.int32)).to(dev)
+    checked = 0
+    for rows in (None, sparse):
+        r = rg if rows is None else rows.shape[0]
+        base = torch.from_numpy((rng.integers(0, 2, size=r) * w)
+                                .astype(np.int32)).to(dev)
+        active = torch.from_numpy(rng.random(r) < 0.8).to(dev)
+        mex = (colors, ell_t, rows, base, active, None, None, w)
+        assert_equal(ops.mex_window(*mex), mex_window_rows_plain(*mex),
+                     f"mex_window huge ids rows={rows is not None}")
+        for src in [Table(colors)] + [
+                Hash(colors, torch.tensor(rnd, dtype=torch.int32,
+                                          device=dev)) for rnd in JPL_ROUNDS]:
+            a = (ell_t, rows, src)
+            assert_equal(ops.jpl_extrema(*a), jpl_extrema_rows_plain(*a),
+                         f"jpl_extrema huge ids rows={rows is not None} "
+                         f"{source_name(src)}")
+            checked += 1
+    del colors
+    torch.cuda.empty_cache()
+    log(phase="kernels.huge_ids", n=n, rows=rg, k=k,
+        max_id=int(ell[ell < n].max()), jpl_calls=checked, equal=True)
+
+
+def call_rows(name: str, args) -> "tuple[torch.Tensor | None, int]":
+    """A gathering kernel's ``rows`` argument and its row count."""
+    at = GATHERING[name].ell_at
+    ell, rows = args[at:at + 2]
+    return rows, ell.shape[0] if rows is None else rows.shape[0]
+
+
+def items_rows(name: str, args) -> "int | None":
     """The row count of a gathering kernel's call from an items block
     (``rows`` given), None for a dense call (``rows`` None)."""
-    return None if args[3] is None else args[4].shape[0]
+    rows, r = call_rows(name, args)
+    return None if rows is None else r
 
 
-def all_rows(args) -> int:
+def all_rows(name: str, args) -> int:
     """The row count of a gathering kernel's call."""
-    return args[4].shape[0]
+    return call_rows(name, args)[1]
+
+
+def _cloned(a):
+    """A copy of a recorded argument's tensors (a ``jpl_extrema`` source's
+    too)."""
+    if torch.is_tensor(a):
+        return a.clone()
+    if isinstance(a, (Table, Hash)):
+        return type(a)(*(x.clone() for x in a))
+    return a
 
 
 class Recorder:
     """Wraps ``ops.<name>`` while active: counts its calls by row count
-    (``rows_of(args)``; None skips the call) and keeps the arguments of the
-    first call at each row count (the operands the main path hands the
-    kernel, as they were, and its keywords, ``tile_rows`` among them, so a
-    kept call runs again at the block the path ran; with ``copy``, copies
-    of its tensors, for a caller that writes into them after the call)."""
+    (``rows_of(name, args)``; None skips the call) and keeps the arguments
+    of the first call at each row count (the operands the main path hands
+    the kernel, as they were, and its keywords, ``tile_rows`` among them,
+    so a kept call runs again at the block the path ran; with ``copy``,
+    copies of its tensors, for a caller that writes into them after the
+    call)."""
 
     def __init__(self, name: str, rows_of=items_rows, copy: bool = False):
         self.name, self.rows_of, self.copy = name, rows_of, copy
@@ -555,14 +666,13 @@ class Recorder:
         real = self.real = getattr(ops, self.name)
 
         def spy(*args, **kw):
-            r = self.rows_of(args)
+            r = self.rows_of(self.name, args)
             if r is not None:
                 self.calls[r] = self.calls.get(r, 0) + 1
                 if r not in self.args:
                     kept = args
                     if self.copy:
-                        kept = tuple(a.clone() if torch.is_tensor(a) else a
-                                     for a in args)
+                        kept = tuple(_cloned(a) for a in args)
                     self.args[r] = (kept, dict(kw))
             return real(*args, **kw)
 
@@ -585,32 +695,37 @@ def untiled(kw: dict) -> dict:
 
 
 def main_path_operands(ig, window: int):
-    """The operands the dense steps hand the kernels, taken from the state
-    two fused dense iterations into a run on ``ig`` at the tile the main
-    path's runs resolve (``tile_rows="auto"``): ``conflict``'s and
-    ``fused_compact``'s as the two-phase and fused dense steps pass them
-    from that state (recorded), the others rebuilt as the steps build
-    them."""
+    """The operands the dense steps hand the kernels, recorded at the tile
+    the main path's runs resolve (``tile_rows="auto"``): ``mex_window``'s
+    and ``conflict``'s from the two-phase dense step and
+    ``fused_compact``'s from the fused one, two fused dense iterations into
+    a run on ``ig``; ``jpl_extrema``'s from the JPL dense round two rounds
+    into a JPL run."""
     tile = tune.resolve_tile_rows("auto", ig.layout_kind, ig.device)
     colors, base, wl = init_ipgc_state(ig)
     for _ in range(2):
         colors, base, wl = ipgc.fused_dense_step(ig, colors, base, wl,
                                                  window=window,
                                                  tile_rows=tile)
-    with Recorder("conflict", all_rows) as rec_c:
+    with Recorder("mex_window", all_rows) as rec_m, \
+            Recorder("conflict", all_rows) as rec_c:
         ipgc.dense_step(ig, colors, base, wl, window=window, tile_rows=tile)
     with Recorder("fused_compact", all_rows) as rec_f:
         ipgc.fused_dense_step(ig, colors, base, wl, window=window,
                               tile_rows=tile)
-    extra = None
-    if ig.n_hub > 0:
-        extra = ipgc._hub_forbidden(ig, colors, base, window)[ig.hub_slot]
-    return dict(nc=colors[ig.ell_idx], base=base, extra=extra,
-                active=wl.mask, capacity=wl.capacity, n=ig.n_nodes,
-                ids=torch.arange(ig.n_nodes, dtype=torch.int32,
-                                 device=ig.device), tile_rows=tile,
+    jpl = get_algorithm("jpl")
+    dense, _ = jpl.step_fns(False)
+    jc, rnd, jwl = jpl.init_state(ig)
+    for _ in range(2):
+        jc, rnd, jwl = dense(ig, jc, rnd, jwl, tile_rows=tile)
+    with Recorder("jpl_extrema", all_rows) as rec_j:
+        dense(ig, jc, rnd, jwl, tile_rows=tile)
+    return dict(active=wl.mask, capacity=wl.capacity, n=ig.n_nodes,
+                k=ig.ell_idx.shape[1], tile_rows=tile,
+                mex_window=rec_m.most_used()[2],
                 conflict=rec_c.most_used()[2],
-                fused_compact=rec_f.most_used()[2])
+                fused_compact=rec_f.most_used()[2],
+                jpl_extrema=rec_j.most_used()[2])
 
 
 def _unique(x: torch.Tensor) -> int:
@@ -705,41 +820,129 @@ def fused_step_work(colors, priority, ell_idx, rows, base, cu, pu, ids,
     return nbytes, 4 * n_real + 4 * n_same
 
 
-#: the gathering kernels: (plain twin, work on the inputs, the index of
-#: hub_forb in their arguments (None: no hub tables), of the window)
+def mex_window_work(colors, ell_idx, rows, base, active, hub_forb, hub_slot,
+                    window) -> tuple[int, int]:
+    """Bytes and operations the mex_window kernel needs on these inputs,
+    each read once: ``active`` (and ``rows``) of every row, ``base`` of the
+    active rows; for the active graph rows 4 bytes per real ELL entry (the
+    padding is never read) and the distinct colors they touch, and each
+    hub row's slot and W bytes of its forbidden row; the int32 output."""
+    pad = colors.shape[0] - 1
+    nbr, ok = gather_rows(ell_idx, rows, pad)
+    r = base.shape[0]
+    work = active & ok
+    real = (nbr != pad) & work[:, None]
+    n_real = int(real.sum())
+    nbytes = (r + (0 if rows is None else 4 * r) + 4 * int(active.sum())
+              + 4 * n_real + 4 * _unique(nbr[real]) + 4 * r)
+    if hub_forb is not None:
+        n_hub = hub_forb.shape[0] - 1
+        slot, _ = gather_rows(hub_slot[:, None], rows, n_hub)
+        hub_rows = work & (slot[:, 0] < n_hub)
+        nbytes += 4 * int(work.sum()) + int(hub_rows.sum()) * window
+    return nbytes, 4 * n_real
+
+
+def jpl_extrema_work(ell_idx, rows, source) -> tuple[int, int]:
+    """Bytes and operations the jpl_extrema kernel needs on these inputs,
+    each read once: ``rows`` (when given), 4 bytes per real ELL entry of
+    the graph rows (the padding is never read), the distinct table entries
+    they touch (and the round), the two int32 outputs; two compares an
+    entry and, for the hash source, ~10 integer operations at each
+    uncolored neighbour."""
+    hashed = isinstance(source, Hash)
+    vec = source.colors if hashed else source.prio
+    pad = vec.shape[0] - 1
+    nbr, ok = gather_rows(ell_idx, rows, pad)
+    r = nbr.shape[0]
+    real = (nbr != pad) & ok[:, None]
+    n_real = int(real.sum())
+    nbytes = ((0 if rows is None else 4 * r) + 4 * n_real
+              + 4 * _unique(nbr[real]) + 8 * r + (4 if hashed else 0))
+    ops_ = 2 * n_real
+    if hashed:
+        ops_ += 10 * int((real & (vec[nbr] == ipgc.NO_COLOR)).sum())
+    return nbytes, ops_
+
+
+def _tiles_gathered(args, nbr):
+    """The colors and priority tiles of conflict, fused_compact and
+    fused_step's earlier signature."""
+    return args[0][nbr], args[1][nbr]
+
+
+def _jpl_tile(args, nbr):
+    """jpl_extrema's earlier tile: the table's priorities, or the colors
+    gather and the hash passes of the hash source."""
+    src = args[2]
+    if isinstance(src, Table):
+        return src.prio[nbr]
+    return torch.where(src.colors[nbr] == ipgc.NO_COLOR,
+                       round_hash(nbr, src.rnd), -1)
+
+
+@dataclasses.dataclass(frozen=True)
+class Gathering:
+    """A kernel that gathers the neighbours itself: its plain twin, its
+    work on the inputs, where its ``ell_idx`` (then ``rows``), window and
+    hub tables sit in its arguments, and the tiles its earlier, pre-gathered
+    signature needed (``old_tiles(args, nbr)``, at the (R, K) neighbour
+    ids ``nbr``)."""
+
+    plain: object
+    work: object
+    ell_at: int
+    window_at: "int | None"
+    hub_at: "int | None"      # hub_forb (None: no hub tables)
+    slot_at: "int | None"     # hub_slot
+    old_tiles: object
+
+    def vector(self, args) -> torch.Tensor:
+        """The int32[N+1] vector the neighbour ids index."""
+        return args[2][0] if self.ell_at == 0 else args[0]
+
+
 GATHERING = {
-    "conflict": (conflict_rows_plain, conflict_work, None, None),
-    "fused_compact": (fused_compact_rows_plain, fused_compact_work, 10, 13),
-    "fused_step": (fused_step_rows_plain, fused_step_work, 9, 12),
+    "mex_window": Gathering(mex_window_rows_plain, mex_window_work, 1, 7, 5,
+                            6, lambda a, nbr: a[0][nbr]),
+    "conflict": Gathering(conflict_rows_plain, conflict_work, 2, None, None,
+                          None, _tiles_gathered),
+    "fused_compact": Gathering(fused_compact_rows_plain, fused_compact_work,
+                               2, 13, 10, 12, _tiles_gathered),
+    "fused_step": Gathering(fused_step_rows_plain, fused_step_work, 2, 12, 9,
+                            11, _tiles_gathered),
+    "jpl_extrema": Gathering(jpl_extrema_rows_plain, jpl_extrema_work, 0,
+                             None, None, None, _jpl_tile),
 }
 
 
-def old_gathers(args, hub_at: "int | None"):
+def old_gathers(name, args):
     """The PyTorch gathers the earlier, pre-gathered signature needed on
-    these operands, as three callables: ``colors[ell]`` and
-    ``priority[ell]`` over the (R, K) neighbour-id tile; for the hub
-    variant of fused_compact and fused_step (their hub tables at
-    ``args[hub_at:hub_at + 3]``) the (R, W) forbidden rows and the (R,)
-    lose flags at each row's hub slot (None without hubs); and the build
-    of that tile, which the sparse steps made (``ell_rows``; None for the
-    dense steps, whose tile is the graph's)."""
-    colors, priority, ell_idx, rows = args[:4]
-    pad = colors.shape[0] - 1
+    these operands, as three callables: the (R, K) neighbour tiles at the
+    neighbour-id tile (``Gathering.old_tiles``); for a hub variant the
+    (R, W) forbidden rows (and for fused_compact and fused_step the (R,)
+    lose flags) at each row's hub slot (None without hubs); and the build
+    of the neighbour-id tile, which the sparse steps made (``ell_rows``;
+    None for the dense steps, whose tile is the graph's)."""
+    gk = GATHERING[name]
+    ell_idx, rows = args[gk.ell_at:gk.ell_at + 2]
+    pad = gk.vector(args).shape[0] - 1
     nbr = ell_idx if rows is None else gather_rows(ell_idx, rows, pad)[0]
     hub = None
-    if hub_at is not None and args[hub_at] is not None:
-        hub_forb, hub_lose, hub_slot = args[hub_at:hub_at + 3]
+    if gk.hub_at is not None and args[gk.hub_at] is not None:
+        hub_forb, hub_slot = args[gk.hub_at], args[gk.slot_at]
+        tables = args[gk.hub_at:gk.slot_at]      # forbidden [, lose]
         slot = (hub_slot if rows is None
                 else gather_rows(hub_slot[:, None], rows,
                                  hub_forb.shape[0] - 1)[0][:, 0])
 
         def hub():
-            return hub_forb[slot], hub_lose[slot]
+            return tuple(tb[slot] for tb in tables)
 
     def ell_rows():
         return gather_rows(ell_idx, rows, pad)[0]
 
-    return ((lambda: (colors[nbr], priority[nbr])), hub,
+    return ((lambda: gk.old_tiles(args, nbr)), hub,
             None if rows is None else ell_rows)
 
 
@@ -750,15 +953,15 @@ def gather_row(name, args, kw, shape: dict, reps: int) -> dict:
     and the time of the earlier signature's gathers (``gather_ms``: the
     neighbour tiles' ``tile_gather_ms`` plus the hub rows'
     ``hub_gather_ms``)."""
-    plain, work, hub_at, _ = GATHERING[name]
+    gk = GATHERING[name]
     kernel = getattr(ops, name)
     pkw = untiled(kw)
-    nbytes, ops_ = work(*args, **pkw)
+    nbytes, ops_ = gk.work(*args, **pkw)
     row = kernel_row(name, lambda: kernel(*args, **kw),
-                     lambda: plain(*args, **pkw), nbytes, ops_, shape, None,
-                     reps, tile_rows=kw.get("tile_rows"),
+                     lambda: gk.plain(*args, **pkw), nbytes, ops_, shape,
+                     None, reps, tile_rows=kw.get("tile_rows"),
                      default=lambda: kernel(*args, **pkw))
-    tiles, hub, ell_rows = old_gathers(args, hub_at)
+    tiles, hub, ell_rows = old_gathers(name, args)
     row["tile_gather_ms"] = cuda_ms(tiles, reps)
     row["hub_gather_ms"] = None if hub is None else cuda_ms(hub, reps)
     row["gather_ms"] = row["tile_gather_ms"] + (row["hub_gather_ms"] or 0.0)
@@ -827,67 +1030,45 @@ def stream_ops(fn, reps: int = 10) -> list:
             for e in prof.key_averages()]
 
 
-def jpl_round_tile(ig, ids) -> torch.Tensor:
-    """The JPL dense round's neighbour priorities at round 0, every node
-    pending."""
-    pr = round_hash(ids, torch.zeros((), dtype=torch.int32,
-                                     device=ig.device))
-    return torch.cat([pr, pr.new_full((1,), -1)])[ig.ell_idx]
-
-
 def kernel_phase(ig, window: int, reps: int = 10) -> dict:
-    """Each kernel at the kron main paths' shapes (the IPGC dense step, the
+    """Each kernel at the kron main paths' shapes (the IPGC dense steps, the
     JPL dense round, a bottom-up BFS level): equality with the plain
-    version, then kernel / plain / library times and the bound; for
-    ``conflict`` and ``fused_compact`` also the time of the gathers their
-    earlier signature needed (``gather_ms``)."""
+    version, then kernel / plain / library times and the bound; for the
+    kernels that gather the neighbours themselves also the time of the
+    gathers their earlier signature needed (``gather_ms``)."""
     o = main_path_operands(ig, window)
-    r, k = o["nc"].shape
-    w, tile = window, o["tile_rows"]
+    r, k, tile = o["n"], o["k"], o["tile_rows"]
     mask = o["active"]
-    shape = dict(rows=r, k=k, window=w, hubs=o["extra"] is not None)
+    shape = dict(rows=r, k=k, window=window, hubs=ig.n_hub > 0)
     rows = {}
 
     def entry(name, kernel, plain, nbytes, ops_, library=None):
-        """``kernel(t)`` at tile ``t``; untiled kernels ignore it."""
-        tiled = name in ("mex_window", "jpl_extrema")
-        rows[name] = kernel_row(
-            name, lambda: kernel(tile if tiled else None), plain, nbytes,
-            ops_, shape, library, reps, tile if tiled else None,
-            lambda: kernel(None))
+        rows[name] = kernel_row(name, kernel, plain, nbytes, ops_, shape,
+                                library, reps)
 
-    entry("mex_window",
-          lambda t: ops.mex_window(o["nc"], o["base"], o["extra"], w,
-                                   tile_rows=t),
-          lambda: mex_window_plain(o["nc"], o["base"], o["extra"], w),
-          nbytes=r * k * 4 + r * 4 + (0 if o["extra"] is None else r * w)
-          + r * 4,
-          ops_=r * k * 4)
-    for name in ("conflict", "fused_compact"):
+    for name in ("mex_window", "conflict", "fused_compact"):
         args, kw = o[name]
         rows[name] = gather_row(name, args, kw, shape, reps)
     args, kw = o["fused_compact"]
     rows["fused_compact"]["stream_ops"] = stream_ops(
         lambda: ops.fused_compact(*args, **kw))
     entry("compact",
-          lambda t: ops.compact(mask, o["capacity"], o["n"]),
+          lambda: ops.compact(mask, o["capacity"], o["n"]),
           lambda: compact_plain(mask, o["capacity"], o["n"]),
           nbytes=r + o["capacity"] * 4 + 4, ops_=r,
           library=lambda: torch.nonzero(mask))
     rows["compact"]["stream_ops"] = stream_ops(
         lambda: ops.compact(mask, o["capacity"], o["n"]))
-    npr = jpl_round_tile(ig, o["ids"])
-    entry("jpl_extrema", lambda t: ops.jpl_extrema(npr, tile_rows=t),
-          lambda: jpl_extrema_plain(npr),
-          nbytes=r * k * 4 + r * 8, ops_=r * k * 2)
-    TILE_MS.update(tile_kernels_main_path(o, npr, w, KRON["name"]))
-    del o, npr
+    args, kw = o["jpl_extrema"]
+    rows["jpl_extrema"] = gather_row("jpl_extrema", args, kw, shape, reps)
+    TILE_MS.update(tile_kernels_main_path(o, window, KRON["name"]))
+    del o, args, kw
     # a bottom-up BFS level's tile; bfs.bottomup_step passes unvisited all
     # true, so the probe is a row any()
     frontier = bottomup_frontier(ig)
     nbr = torch.cat([frontier, frontier.new_zeros(1)])[ig.ell_idx]
     unvisited = torch.ones(r, dtype=torch.bool, device=ig.device)
-    entry("frontier_probe", lambda t: ops.frontier_probe(nbr, unvisited),
+    entry("frontier_probe", lambda: ops.frontier_probe(nbr, unvisited),
           lambda: frontier_probe_plain(nbr, unvisited),
           nbytes=r * k + 2 * r, ops_=r * k,
           library=lambda: torch.any(nbr, dim=1))
@@ -964,8 +1145,9 @@ COLORINGS = (("ipgc", False, ("mex_window", "conflict", "compact")),
 
 
 #: the kernels whose sparse-shape rows each ipgc run records
-SPARSE_ROWS = {("ipgc", False): ("conflict", "compact"),
-               ("ipgc", True): ("fused_compact",)}
+SPARSE_ROWS = {("ipgc", False): ("mex_window", "conflict", "compact"),
+               ("ipgc", True): ("fused_compact",),
+               ("jpl", None): ("jpl_extrema",)}
 
 
 def recorder(name: str, n: int) -> Recorder:
@@ -973,7 +1155,7 @@ def recorder(name: str, n: int) -> Recorder:
     kernel's calls from items blocks, or compact's over fewer than ``n``
     flags (an items block's, not a dense worklist's)."""
     if name == "compact":
-        return Recorder(name, lambda a: a[0].shape[0]
+        return Recorder(name, lambda _, a: a[0].shape[0]
                         if a[0].shape[0] < n else None)
     return Recorder(name)
 
@@ -997,10 +1179,10 @@ def sparse_row(rec: Recorder, reps: int) -> dict:
         return {key: row[key] for key in (
             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "stream_ops")}
-    _, _, hub_at, window_at = GATHERING[rec.name]
-    shape = dict(rows=c, k=args[2].shape[1],
-                 window=None if window_at is None else args[window_at],
-                 hubs=hub_at is not None and args[hub_at] is not None,
+    gk = GATHERING[rec.name]
+    shape = dict(rows=c, k=args[gk.ell_at].shape[1],
+                 window=None if gk.window_at is None else args[gk.window_at],
+                 hubs=gk.hub_at is not None and args[gk.hub_at] is not None,
                  **counts)
     row = gather_row(rec.name, args, kw, shape, reps)
     return {key: row[key] for key in (
@@ -1015,8 +1197,8 @@ def path_phase(g, build_s: float, rows: "dict | None" = None,
     """Every coloring path through ``repro_torch.color`` on ``g``; returns
     the kernel launches of each run. The ipgc and jpl Pipes are replayed
     with the sync check. With ``rows`` (the kernels line's rows), the ipgc
-    runs record the sparse steps' calls of ``conflict`` and
-    ``fused_compact`` and time each at its most-used capacity bucket. With
+    and jpl runs record the sparse steps' calls of ``SPARSE_ROWS`` and
+    time each at its most-used capacity bucket. With
     ``results``, each run's ``ColoringResult`` goes there under
     ``(algo, fused)``. With ``traced``, the ipgc two-phase run is repeated
     traced (``traced_check``)."""
@@ -1254,31 +1436,38 @@ def dist_phase(g, devices, runs, record: bool = False,
     ``color(mode="dist-hybrid")`` with one shard per visible card. Every
     run is verified, counted and replayed with the sync check. With
     ``record`` the ipgc fused run records the sparse steps' ``fused_step``
-    calls and times the kernel at its most-used capacity bucket. Each run
+    calls and times the kernel at its most-used capacity bucket, and the
+    ipgc two-phase and jpl runs record their ``mex_window`` and
+    ``jpl_extrema`` calls, held against the plain twins at a shard's dense
+    shape and the most-used sparse one (``dist_held_check``). Each run
     in ``boundary`` is followed by its boundary and auto exchanges
     (``boundary_phase``; with ``traced``, a traced auto run of ipgc
     fused too). Returns
     the kernel launches of each run, and the prepared partitioned graph,
-    the mesh, the window and that sparse entry for the ``fused_step``
-    row."""
+    the mesh, the window, that sparse entry for the ``fused_step``
+    row and the held calls by kernel (``checked``)."""
     sess = default_session()
     mesh = dist.resolve_mesh(None, devices, sess.device)
     t0 = time.perf_counter()
     g2, relabel = sess.partition(g, len(mesh))
     partition_s = time.perf_counter() - t0
     replay_ig = repro_torch.prepare(g2)
-    launches, sparse = [], None
+    launches, sparse, checked = [], None, {}
     for algo, fused, per_iter in runs:
         alg = get_algorithm(algo)
         rec = (Recorder("fused_step")
                if record and (algo, fused) == ("ipgc", True) else None)
+        held = [Recorder(name, all_rows) for name in
+                (DIST_HELD.get((algo, fused), ()) if record else ())]
         max_iter = 10_000
         if devices is not None:
             max_iter = DIST_ROUND_CAP.get(algo, max_iter)
         start_counts()
-        with (rec or contextlib.nullcontext()), \
+        with contextlib.ExitStack() as stack, \
                 ipgc.LAUNCH_COUNTS.scope() as passes, \
                 dist.EXCHANGE_COUNTS.scope() as exchanges:
+            for r_ in held if rec is None else held + [rec]:
+                stack.enter_context(r_)
             t0 = time.perf_counter()
             r = run_dist(g, devices, algo=algo, fused=fused,
                          max_iter=max_iter)
@@ -1291,7 +1480,9 @@ def dist_phase(g, devices, runs, record: bool = False,
             sparse["shape"]["shards"] = len(mesh)
             log(phase="kernels.sparse_shape", name="fused_step", graph=g.name,
                 **sparse)
-        del rec
+        for h in held:
+            checked[h.name] = dist_held_check(h, len(mesh), reps)
+        del rec, held
         what = f"{g.name} dist S={len(mesh)} {algo} fused={fused}"
         missing = [k for k in dist_kernels(algo, fused) if counts[k] == 0]
         if missing:
@@ -1336,7 +1527,33 @@ def dist_phase(g, devices, runs, record: bool = False,
             del sess.cache[key]
         torch.cuda.empty_cache()
     return launches, dict(ig=replay_ig, mesh=mesh, window=adaptive_window(g2),
-                          sparse=sparse)
+                          sparse=sparse, checked=checked)
+
+
+#: the kernels whose dist calls a recorded run holds against their twins
+DIST_HELD = {("ipgc", False): ("mex_window",), ("jpl", None): ("jpl_extrema",)}
+
+
+def dist_held_check(rec: Recorder, shards: int, reps: int) -> dict:
+    """The recorded calls of a distributed run (a shard's dense call and
+    the sparse calls at the most-used capacity) made again through the
+    kernel, at the tile the run used, and through its plain twin: exactly
+    equal, both timed."""
+    kernel, plain = getattr(ops, rec.name), GATHERING[rec.name].plain
+    dense = max(rec.calls)             # a shard's block: the largest call
+    out = []
+    for r in sorted({dense, rec.most_used()[0]}):
+        args, kw = rec.args[r]
+        err = assert_equal(kernel(*args, **kw), plain(*args, **untiled(kw)),
+                           f"{rec.name} dist S={shards} rows={r}")
+        out.append(dict(rows=r, calls=rec.calls[r], dense=r == dense,
+                        max_abs_err=err, ms=cuda_ms(
+                            lambda: kernel(*args, **kw), reps),
+                        plain_ms=cuda_ms(lambda: plain(*args, **untiled(kw)),
+                                         2), tile_rows=kw.get("tile_rows")))
+    log(phase="kernels.dist_shapes", name=rec.name, shards=shards,
+        calls=sum(rec.calls.values()), checked=out, equal=True)
+    return dict(shards=shards, calls=sum(rec.calls.values()), checked=out)
 
 
 def run_dist(g, devices, **kw):
@@ -1890,11 +2107,11 @@ def group_summary(graphs, st, step) -> dict:
 
 
 #: the kernels of the lane trips, by wrapper, and their plain versions
-LANE_PLAIN = {"mex_window": mex_window_plain,
+LANE_PLAIN = {"mex_window": mex_window_rows_plain,
               "conflict": conflict_rows_plain,
               "compact": compact_plain,
               "fused_compact": fused_compact_rows_plain,
-              "jpl_extrema": jpl_extrema_plain}
+              "jpl_extrema": jpl_extrema_rows_plain}
 #: every lane-trip call held against its plain version: (kernel, rows)
 LANE_CHECKS: list = []
 
@@ -1941,7 +2158,7 @@ def lane_trip_kernels(st, step, what: str, need, trips: int = 2) -> dict:
     force_hub = ipgc.force_hub_enabled()
     for _ in range(trips):
         st._trip(buf, step, st.sc.window, force_hub, None)
-    recs = [Recorder(name, lambda a: 0, copy=True) for name in LANE_PLAIN]
+    recs = [Recorder(name, lambda *_: 0, copy=True) for name in LANE_PLAIN]
     with contextlib.ExitStack() as stack:
         for rec in recs:
             stack.enter_context(rec)
@@ -2376,39 +2593,30 @@ def tile_row(name: str, kernel, plain) -> dict:
     return out
 
 
-def tile_kernels_main_path(o: dict, npr, window: int, graph: str) -> dict:
+def tile_kernels_main_path(o: dict, window: int, graph: str) -> dict:
     """The five row kernels the reference tiles at ``graph``'s dense shape
     (``main_path_operands``), at each candidate tile: equal to their plain
     twins; ms per tile, beside the default block's and the tile the main
     path resolves ("auto")."""
-    w = window
-    c_args, _ = o["conflict"]
     f_args, f_kw = o["fused_compact"]
     f_kw = untiled(f_kw)
     s_args = f_args[:8] + f_args[9:]
-    rows = {
-        "mex_window": tile_row(
-            "mex_window",
-            lambda t: ops.mex_window(o["nc"], o["base"], o["extra"], w,
-                                     tile_rows=t),
-            lambda: mex_window_plain(o["nc"], o["base"], o["extra"], w)),
-        "conflict": tile_row(
-            "conflict", lambda t: ops.conflict(*c_args, tile_rows=t),
-            lambda: conflict_rows_plain(*c_args)),
-        "fused_compact": tile_row(
-            "fused_compact",
-            lambda t: ops.fused_compact(*f_args, **f_kw, tile_rows=t),
-            lambda: fused_compact_rows_plain(*f_args, **f_kw)),
-        "fused_step": tile_row(
-            "fused_step", lambda t: ops.fused_step(*s_args, tile_rows=t),
-            lambda: fused_step_rows_plain(*s_args)),
-        "jpl_extrema": tile_row(
-            "jpl_extrema", lambda t: ops.jpl_extrema(npr, tile_rows=t),
-            lambda: jpl_extrema_plain(npr)),
-    }
-    log(phase="tune.kernels_main_path", graph=graph, rows=o["nc"].shape[0],
-        k=o["nc"].shape[1], window=w, auto_tile=o["tile_rows"],
-        ms_by_tile=rows, equal=True)
+    rows = {}
+    for name in ("mex_window", "conflict", "jpl_extrema"):
+        args, _ = o[name]
+        rows[name] = tile_row(
+            name, lambda t, a=args, fn=getattr(ops, name): fn(*a, tile_rows=t),
+            lambda a=args, gk=GATHERING[name]: gk.plain(*a))
+    rows["fused_compact"] = tile_row(
+        "fused_compact",
+        lambda t: ops.fused_compact(*f_args, **f_kw, tile_rows=t),
+        lambda: fused_compact_rows_plain(*f_args, **f_kw))
+    rows["fused_step"] = tile_row(
+        "fused_step", lambda t: ops.fused_step(*s_args, tile_rows=t),
+        lambda: fused_step_rows_plain(*s_args))
+    log(phase="tune.kernels_main_path", graph=graph, rows=o["n"], k=o["k"],
+        window=window, auto_tile=o["tile_rows"], ms_by_tile=rows,
+        equal=True)
     return rows
 
 
@@ -2418,8 +2626,7 @@ def tile_check_phase(g) -> None:
     the default block at a shape other than kron's."""
     ig = repro_torch.prepare(g)
     o = main_path_operands(ig, adaptive_window(g))
-    tile_kernels_main_path(o, jpl_round_tile(ig, o["ids"]),
-                           adaptive_window(g), g.name)
+    tile_kernels_main_path(o, adaptive_window(g), g.name)
     del ig, o
     torch.cuda.empty_cache()
 
@@ -2427,13 +2634,11 @@ def tile_check_phase(g) -> None:
 def tile_kernels_edge_cases(dev) -> None:
     """The five row kernels at the edge-case sizes, each at every
     candidate tile (and blocks past the 1024-thread cap), equal to their
-    plain twins."""
+    plain twins (``jpl_extrema`` with both sources)."""
     def t(a):
         return None if a is None else torch.from_numpy(np.asarray(a)).to(dev)
 
-    rng = np.random.default_rng(11)
-    names = ("colors", "priority", "ell", "rows", "base", "cu", "pu", "ids",
-             "active", "pending", "hub_forb", "hub_lose", "hub_slot")
+    rnd = torch.tensor(7, dtype=torch.int32, device=dev)
     checked = 0
     for rg in (1, 7, 257, 3000):
         for k in (1, 8, 40, 128):
@@ -2442,21 +2647,22 @@ def tile_kernels_edge_cases(dev) -> None:
                     c = gather_case(rg * 3 + k + w + sparse, rg, k,
                                     sparse=sparse, hub=hub, window=w, lo=3)
                     r = len(c["cu"])
-                    nc = rng.integers(-2, 300, size=(r, k)).astype(np.int32)
-                    base = (rng.integers(0, 4, size=r) * w).astype(np.int32)
-                    extra = (rng.random((r, w)) < 0.25) if hub else None
-                    npr = t(np.where(rng.random((r, k)) < 0.3, -1, nc))
-                    m = [t(a) for a in (nc, base, extra)]
-                    f = [t(c[n]) for n in names]
+                    m = [t(c[n]) for n in MEX_NAMES]
+                    f = [t(c[n]) for n in FUSED_NAMES]
                     s_ = f[:8] + f[9:]
+                    sources = (Table(t(jpl_prio_table(c, rg + k + w))),
+                               Hash(f[0], rnd))
                     what = f"rg={rg} k={k} w={w} sparse={sparse}"
                     for tile in tune.CANDIDATES + (1024,):
                         assert_equal(ops.mex_window(*m, w, tile_rows=tile),
-                                     mex_window_plain(*m, w),
+                                     mex_window_rows_plain(*m, w),
                                      f"mex_window {what} tile={tile}")
-                        assert_equal(ops.jpl_extrema(npr, tile_rows=tile),
-                                     jpl_extrema_plain(npr),
-                                     f"jpl_extrema {what} tile={tile}")
+                        for src in sources:
+                            a = (f[2], f[3], src)
+                            assert_equal(ops.jpl_extrema(*a, tile_rows=tile),
+                                         jpl_extrema_rows_plain(*a),
+                                         f"jpl_extrema {what} tile={tile} "
+                                         f"{source_name(src)}")
                         assert_equal(ops.conflict(*f[:4], *f[5:8], f[9],
                                                   tile_rows=tile),
                                      conflict_rows_plain(*f[:4], *f[5:8],
@@ -2470,7 +2676,7 @@ def tile_kernels_edge_cases(dev) -> None:
                         assert_equal(ops.fused_step(*s_, w, tile_rows=tile),
                                      fused_step_rows_plain(*s_, w),
                                      f"fused_step {what} tile={tile}")
-                        checked += 5
+                        checked += 6
     log(phase="tune.kernels_edge_cases", calls_checked=checked, equal=True,
         tiles=list(tune.CANDIDATES) + [1024])
 
@@ -3324,6 +3530,8 @@ def main() -> int:
                                 record=True, boundary=DIST_RUNS[:2],
                                 traced=True)
     runs += dist_runs
+    for name, held in ctx.pop("checked").items():
+        rows[name]["dist"] = held
     rows["fused_step"] = fused_step_row(**ctx)
     mark("kron.dist")
     del ctx

@@ -19,7 +19,10 @@ Per-phase communication profile (as in the reference):
     neighbours outside the worklist is only knowable from colors).
 
 The row-wise priority extrema go through ``kernels.ops.jpl_extrema``: the
-``jpl_prio`` CUDA kernel on a CUDA device, its plain version on the CPU.
+``jpl_prio`` CUDA kernel on a CUDA device, which gathers each row's
+neighbour priorities itself (from the dense round's priority table, or
+hashed where the colors say a neighbour is uncolored), its plain version
+on the CPU.
 Like the IPGC steps, the rounds are shape-static and read nothing back.
 
 The palette has per-round gaps (a round may confirm only one of its two
@@ -36,37 +39,9 @@ from repro_torch.core import ipgc
 from repro_torch.core.worklist import (Worklist, compact_items, compact_mask,
                                        full_worklist)
 from repro_torch.kernels import ops
-from repro_torch.kernels.jpl_prio import LARGE
+from repro_torch.kernels.jpl_prio import LARGE, Hash, Table, round_hash
 
 NO_COLOR = ipgc.NO_COLOR
-_M32 = 0xFFFFFFFF
-
-
-def _mul32_(x: torch.Tensor, c: int) -> torch.Tensor:
-    """``x * c mod 2**32`` in place, for int64 ``x`` in [0, 2**32): the
-    constant is split in 16-bit halves so no product reaches 2**48."""
-    hi = x * (c >> 16)
-    hi &= 0xFFFF
-    hi <<= 16
-    x.mul_(c & 0xFFFF).add_(hi).bitwise_and_(_M32)
-    return x
-
-
-def round_hash(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """Per-round priority: the reference's uint32 splitmix-ish mixer of
-    (id, round), as a nonnegative int32. Computed in int64 and masked to
-    32 bits (PyTorch has no uint32 shift on the CPU); in place on one
-    int64 copy of ``x``, so a call holds two int64 temporaries of its
-    size at most."""
-    seed = _mul32_((r.to(torch.int64) + 1) & _M32, 0x9E3779B9)
-    h = x.to(torch.int64)                  # the one full-size copy
-    h.add_(seed).bitwise_and_(_M32)
-    h.bitwise_xor_(h >> 16)
-    _mul32_(h, 0x85EBCA6B)
-    h.bitwise_xor_(h >> 13)
-    _mul32_(h, 0xC2B2AE35)
-    h.bitwise_xor_(h >> 16)
-    return (h >> 1).to(torch.int32)
 
 
 def _hub_extrema_raw(nh: int, tail_slot: torch.Tensor, tpr: torch.Tensor
@@ -111,8 +86,9 @@ def _jpl_dense(ig: ipgc.IPGCGraph, colors: torch.Tensor, ids: torch.Tensor,
     pr = torch.where(pend, round_hash(ids, rnd), -1)
     pr_ext = torch.cat([pr, pr.new_full((1,), -1)])
 
-    npr = pr_ext[ig.ell_idx]               # (N, K); pad lanes -> -1
-    nbr_max, nbr_min = ops.jpl_extrema(npr, tile_rows=tile_rows)
+    # the neighbours' priorities, gathered from pr_ext inside the kernel
+    nbr_max, nbr_min = ops.jpl_extrema(ig.ell_idx, None, Table(pr_ext),
+                                       tile_rows=tile_rows)
     if ipgc._has_hubs(ig, force_hub):
         tpr = torch.where(ig.tail_valid, pr_ext[ig.tail_dst], -1)
         hmax, hmin = _hub_extrema(ig, tpr)
@@ -183,10 +159,10 @@ def jpl_sparse_step(ig: ipgc.IPGCGraph, colors: torch.Tensor,
     pend = valid & (cu == NO_COLOR)
     pr = torch.where(pend, round_hash(items, rnd), -1)
 
-    ell_rows = torch.where(valid[:, None], ig.ell_idx[safe], n)    # (C, K)
-    nc = ipgc._gather_neighbor_colors(colors, ell_rows)
-    npr = torch.where(nc == NO_COLOR, round_hash(ell_rows, rnd), -1)
-    nbr_max, nbr_min = ops.jpl_extrema(npr, tile_rows=tile_rows)
+    # the one colors gather, inside the kernel (invalid items: empty rows)
+    ipgc._count_kernel_gather()
+    nbr_max, nbr_min = ops.jpl_extrema(ig.ell_idx, items, Hash(colors, rnd),
+                                       tile_rows=tile_rows)
     if ipgc._has_hubs(ig, force_hub):
         tc = colors[ig.tail_dst]
         tpr = torch.where(ig.tail_valid & (tc == NO_COLOR),
@@ -241,19 +217,25 @@ def make_jpl_dist_steps(ig: ipgc.IPGCGraph, mesh, *,
     n, nh = ig.n_nodes, ig.n_hub
     publisher = dist._Publisher(mesh, shards, n, exchange, boundary, thresh)
 
-    def nbr_extrema(sig, colors, rnd, ell_rows, slot, valid=None):
-        nc = colors[ell_rows]
-        npr = torch.where(nc == NO_COLOR, round_hash(ell_rows, rnd), -1)
-        nbr_max, nbr_min = ops.jpl_extrema(npr, tile_rows=tile_rows)
+    def nbr_extrema(sig, colors, rnd, r=None):
+        """The extrema of all the shard's rows (``r`` None) or of its sparse
+        rows ``r``, whose pad lanes get the neutral hub extrema."""
+        # the kernel gathers the rows' neighbours and hashes the uncolored
+        rows = None if r is None else r.rows
+        nbr_max, nbr_min = ops.jpl_extrema(sig.ell_idx, rows,
+                                           Hash(colors, rnd),
+                                           tile_rows=tile_rows)
         if nh > 0:
             tc = colors[sig.tail_dst]
             tpr = torch.where(sig.tail_valid & (tc == NO_COLOR),
                               round_hash(sig.tail_dst, rnd), -1)
             hmax, hmin = _hub_extrema(sig, tpr)
-            hmax, hmin = hmax[slot], hmin[slot]
-            if valid is not None:
-                hmax = torch.where(valid, hmax, -1)
-                hmin = torch.where(valid, hmin, LARGE)
+            if r is None:
+                hmax, hmin = hmax[sig.hub_slot], hmin[sig.hub_slot]
+            else:
+                slot = sig.hub_slot[r.local]
+                hmax = torch.where(r.valid, hmax[slot], -1)
+                hmin = torch.where(r.valid, hmin[slot], LARGE)
             nbr_max = torch.maximum(nbr_max, hmax)
             nbr_min = torch.minimum(nbr_min, hmin)
         return nbr_max, nbr_min
@@ -262,8 +244,7 @@ def make_jpl_dist_steps(ig: ipgc.IPGCGraph, mesh, *,
         cu = colors[sh.lo:sh.hi]
         pend = mask_l & (cu == NO_COLOR)
         pr = torch.where(pend, round_hash(sh.row_ids, rnd), -1)
-        nbr_max, nbr_min = nbr_extrema(sh.ig, colors, rnd, sh.ig.ell_idx,
-                                       sh.ig.hub_slot)
+        nbr_max, nbr_min = nbr_extrema(sh.ig, colors, rnd)
         new_c, newly = _decide(pend, pr, nbr_max, nbr_min, rnd, cu)
         return dist._Writes(None, cu, new_c), mask_l & ~newly
 
@@ -271,8 +252,7 @@ def make_jpl_dist_steps(ig: ipgc.IPGCGraph, mesh, *,
         r = dist._sparse_rows(sh, colors, items_l)
         pend = r.valid & (r.cu == NO_COLOR)
         pr = torch.where(pend, round_hash(r.ids, rnd), -1)
-        nbr_max, nbr_min = nbr_extrema(sh.ig, colors, rnd, r.ell_rows,
-                                       r.slot, r.valid)
+        nbr_max, nbr_min = nbr_extrema(sh.ig, colors, rnd, r)
         new_c, newly = _decide(pend, pr, nbr_max, nbr_min, rnd, r.cu)
         writes = dist._Writes(r.ids, r.cu, torch.where(r.valid, new_c, r.cu))
         return writes, r, pend & ~newly

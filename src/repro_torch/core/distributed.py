@@ -460,14 +460,14 @@ def _dense_assign_local(sh: Shard, colors, base_l, active, window: int,
                         tile_rows: "int | None"):
     ig = sh.ig
     n = ig.n_nodes
-    nc = colors[ig.ell_idx]
-    extra = None
+    hub_forb = None
     if ig.n_hub > 0:
         base_pad = _padded(sh, base_l, n)
-        extra = ipgc._hub_forbidden(ig, colors, base_pad, window)[ig.hub_slot]
+        hub_forb = ipgc._hub_forbidden(ig, colors, base_pad, window)
     cu = colors[sh.lo:sh.hi]
-    new_c, new_base, newly = ipgc._mex_rows(nc, base_l, active, cu, extra,
-                                            window, tile_rows)
+    # the kernel gathers the shard's neighbours itself (rows None: all)
+    new_c, new_base, newly = ipgc._mex_rows(ig, colors, None, base_l, active,
+                                            cu, hub_forb, window, tile_rows)
     # exchange 1 publishes the speculative colors of the owned rows
     return _Writes(None, cu, torch.where(active, new_c, cu)), new_base, newly
 
@@ -556,18 +556,12 @@ class _SparseRows:
     ids: torch.Tensor         # int32[C] global ids, pad N
     cu: torch.Tensor          # int32[C] current colors (pad PAD_COLOR)
     base_rows: "torch.Tensor | None"   # int32[C] window bases
-    ell_rows: "torch.Tensor | None"    # int32[C, K], pad rows N
-    slot: "torch.Tensor | None"    # int32[C] hub slot (pad n_hub)
-    extra: "torch.Tensor | None"   # bool[C, W] hub forbidden bitmap
 
 
-def _sparse_rows(sh: Shard, colors, items_l, base_l=None, window: int = 0,
-                 *, tiles: bool = True) -> _SparseRows:
+def _sparse_rows(sh: Shard, colors, items_l, base_l=None) -> _SparseRows:
     """Gather the shard's worklist rows; with ``base_l`` also their window
-    bases. With ``tiles`` (the callers whose kernels take pre-gathered
-    tiles) also their (C, K) ELL rows and, on a graph with hubs, their hub
-    slots and, with ``base_l``, their hub forbidden bitmaps; the fused
-    step's kernel gathers all of that itself from ``rows``."""
+    bases. The row kernels gather the rows' neighbours and hub rows
+    themselves from ``rows``."""
     ig = sh.ig
     n = ig.n_nodes
     blk = sh.hi - sh.lo
@@ -576,28 +570,17 @@ def _sparse_rows(sh: Shard, colors, items_l, base_l=None, window: int = 0,
     # pad lanes
     local = torch.where(valid, items_l - sh.lo, 0).clamp(0, blk - 1).long()
     ids = torch.where(valid, items_l, n)
-    ell_rows = slot = extra = base_rows = None
-    if base_l is not None:
-        base_rows = base_l[local]
-    if tiles:
-        ell_rows = torch.where(valid[:, None], ig.ell_idx[local], n)
-        if ig.n_hub > 0:
-            slot = torch.where(valid, ig.hub_slot[local], ig.n_hub)
-            if base_l is not None:
-                base_pad = _padded(sh, base_l, n)
-                extra = ipgc._hub_forbidden(ig, colors, base_pad,
-                                            window)[slot]
     return _SparseRows(valid=valid, local=local,
                        rows=torch.where(valid, local, blk).to(torch.int32),
-                       ids=ids, cu=colors[ids], base_rows=base_rows,
-                       ell_rows=ell_rows, slot=slot, extra=extra)
+                       ids=ids, cu=colors[ids],
+                       base_rows=None if base_l is None else base_l[local])
 
 
 def _sparse_fused_local(sh: Shard, colors, base_l, items_l, window: int,
                         tile_rows: "int | None"):
     ig = sh.ig
     n = ig.n_nodes
-    r = _sparse_rows(sh, colors, items_l, base_l, tiles=False)
+    r = _sparse_rows(sh, colors, items_l, base_l)
     pu = ig.priority[r.ids]
     pending = r.valid & (r.cu >= 0)
     hub_tables = None
@@ -624,11 +607,16 @@ def _sparse_fused_local(sh: Shard, colors, base_l, items_l, window: int,
 
 def _sparse_assign_local(sh: Shard, colors, base_l, items_l, window: int,
                          tile_rows: "int | None"):
-    r = _sparse_rows(sh, colors, items_l, base_l, window)
-    nc = colors[r.ell_rows]
-    new_c, new_base_rows, newly = ipgc._mex_rows(nc, r.base_rows, r.valid,
-                                                 r.cu, r.extra, window,
-                                                 tile_rows)
+    ig = sh.ig
+    r = _sparse_rows(sh, colors, items_l, base_l)
+    hub_forb = None
+    if ig.n_hub > 0:
+        base_pad = _padded(sh, base_l, ig.n_nodes)
+        hub_forb = ipgc._hub_forbidden(ig, colors, base_pad, window)
+    # the kernel gathers the items' neighbours itself (pad lanes: row blk)
+    new_c, new_base_rows, newly = ipgc._mex_rows(ig, colors, r.rows,
+                                                 r.base_rows, r.valid, r.cu,
+                                                 hub_forb, window, tile_rows)
     writes = _Writes(r.ids, r.cu, torch.where(r.valid, new_c, r.cu))
     return writes, r, new_base_rows, newly
 
@@ -644,7 +632,7 @@ def _sparse_resolve_local(sh: Shard, colors2, items_l, r: _SparseRows,
             torch.zeros(n + 1, dtype=torch.bool, device=sh.device),
             torch.where(newly, items_l, n), newly)
         hub_l = ipgc._hub_lose(ig, colors2, newly_full)
-        lose = lose | (hub_l[r.slot] & r.valid)
+        lose = lose | (hub_l[ig.hub_slot[r.local]] & r.valid)
     c2 = colors2[r.ids]
     undo = _Writes(r.ids, c2, torch.where(lose, NO_COLOR, c2))
     return undo, lose | (r.valid & ~newly)

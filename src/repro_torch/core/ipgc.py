@@ -316,8 +316,8 @@ def _has_hubs(ig: IPGCGraph, force_hub: "bool | None") -> bool:
 # --- accounting ----------------------------------------------------------------
 # Counted when a step runs. GATHER_COUNTS: ELL- or edge-shaped gathers of
 # the mutable colors array (the fused steps make one per iteration, the
-# two-phase steps two; the conflict and fused_compact kernels make theirs
-# inside the kernel, counted at the call). LAUNCH_COUNTS: logical device passes per step —
+# two-phase steps two; the row kernels make theirs inside the kernel,
+# counted at the call). LAUNCH_COUNTS: logical device passes per step —
 # mex/conflict/compact for the three passes of a two-phase step, fused for
 # a one-pass fused step (DESIGN.md §10). The CUDA launches behind them are
 # counted per kernel in ``kernels.ops.KERNEL_LAUNCHES``.
@@ -333,9 +333,9 @@ def _gather_neighbor_colors(colors: torch.Tensor,
 
 
 def _count_kernel_gather() -> None:
-    """Count the neighbour-color gather that ``conflict`` and
-    ``fused_compact`` make inside the kernel: still the algorithm's
-    gather, at the reference's call sites."""
+    """Count the neighbour-color gather that ``mex_window``, ``conflict``,
+    ``fused_compact`` and ``jpl_extrema`` make inside the kernel: still
+    the algorithm's gather, at the reference's call sites."""
     GATHER_COUNTS["neighbor_colors"] += 1
 
 
@@ -404,19 +404,24 @@ def _mex_from_forbidden(forb: torch.Tensor, active: torch.Tensor,
     return new_colors, new_base, active & has
 
 
-def _mex_rows(nc: torch.Tensor, base_rows: torch.Tensor,
+def _mex_rows(ig: IPGCGraph, colors: torch.Tensor,
+              rows: "torch.Tensor | None", base_rows: torch.Tensor,
               active: torch.Tensor, colors_rows: torch.Tensor,
-              extra_forb: "torch.Tensor | None", window: int,
+              hub_forb: "torch.Tensor | None", window: int,
               tile_rows: "int | None" = None):
-    """Row-wise windowed mex: the ``mex_window`` kernel, then the
+    """Row-wise windowed mex: the ``mex_window`` kernel, which gathers the
+    neighbours of ``ig.ell_idx[rows]`` itself (``rows`` None is every ELL
+    row, a row >= the ELL's row count is empty) and reads ``hub_forb`` (the
+    ``_hub_forbidden`` table, or None) at each row's hub slot; then the
     new-color/base selection of the active rows."""
     LAUNCH_COUNTS["mex"] += 1
-    first = ops.mex_window(nc, base_rows, extra_forb, window,
-                           tile_rows=tile_rows)
-    has = first >= 0
-    new_colors = torch.where(active & has, base_rows + first, colors_rows)
+    hub_slot = None if hub_forb is None else ig.hub_slot
+    first = ops.mex_window(colors, ig.ell_idx, rows, base_rows, active,
+                           hub_forb, hub_slot, window, tile_rows=tile_rows)
+    has = first >= 0                      # only active rows have a first
+    new_colors = torch.where(has, base_rows + first, colors_rows)
     new_base = torch.where(active & ~has, base_rows + window, base_rows)
-    return new_colors, new_base, active & has
+    return new_colors, new_base, has
 
 
 def _lose_rows(ig: IPGCGraph, rows: "torch.Tensor | None",
@@ -566,12 +571,12 @@ def dense_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
     row_ids = torch.arange(n, dtype=torch.int32, device=colors.device)
     has_hubs = _has_hubs(ig, force_hub)
 
-    # --- assign (speculative windowed mex) ---
-    nc = _gather_neighbor_colors(colors, ig.ell_idx)
-    extra = (_hub_forbidden(ig, colors, base, window)[ig.hub_slot]
-             if has_hubs else None)
-    new_c, new_base, newly = _mex_rows(nc, base, active, colors[:n], extra,
-                                       window, tile_rows)
+    # --- assign (speculative windowed mex, gathering in the kernel) ---
+    _count_kernel_gather()
+    hub_forb = _hub_forbidden(ig, colors, base, window) if has_hubs else None
+    new_c, new_base, newly = _mex_rows(ig, colors, None, base, active,
+                                       colors[:n], hub_forb, window,
+                                       tile_rows)
     colors2 = torch.cat([new_c, colors[n:]])
 
     # --- resolve (uncolor exactly one endpoint per conflict edge) ---
@@ -589,7 +594,7 @@ def dense_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# sparse (data-driven) step — gathers C worklist rows, O(C*K + T + C*W)
+# sparse (data-driven) step — the C worklist rows, O(C*K + T + n_hub*W)
 # ---------------------------------------------------------------------------
 
 def sparse_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
@@ -608,14 +613,12 @@ def sparse_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
 
     # --- assign ---
     has_hubs = _has_hubs(ig, force_hub)
-    ell_rows = torch.where(valid[:, None], ig.ell_idx[safe], n)    # (C, K)
-    nc = _gather_neighbor_colors(colors, ell_rows)
+    _count_kernel_gather()        # the items' neighbours, in the kernel
     base_rows = base[safe]
-    extra = (_hub_forbidden(ig, colors, base, window)[ig.hub_slot[safe]]
-             if has_hubs else None)
-    new_c, new_base_rows, newly = _mex_rows(nc, base_rows, valid,
-                                            colors[safe], extra, window,
-                                            tile_rows)
+    hub_forb = _hub_forbidden(ig, colors, base, window) if has_hubs else None
+    new_c, new_base_rows, newly = _mex_rows(ig, colors, items, base_rows,
+                                            valid, colors[safe], hub_forb,
+                                            window, tile_rows)
     colors2 = _set_rows(colors, target, torch.where(valid, new_c, PAD_COLOR))
     colors2[n:].fill_(PAD_COLOR)
     base2 = _set_rows_drop(base, target, new_base_rows)

@@ -73,7 +73,6 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.algos.jpl import jpl_lane_dense_step
 from repro_torch.core import ipgc
 from repro_torch.core.engine import ColoringResult
 from repro_torch.core.policy import Timer, device_threshold, make_policy
@@ -195,9 +194,9 @@ def _inert_buffers(aux0: torch.Tensor, b: int, n_pad: int,
 # memory: a lane group's bytes, reckoned before they are allocated
 # ---------------------------------------------------------------------------
 
-#: a dense trip's intermediates beyond its (N, K) tile, reckoned per row
-#: (ids, new colors and bases, masks, the emission) and per tail entry
-#: (the hub side-channel's passes)
+#: a dense trip's intermediates, reckoned per row (ids, new colors and
+#: bases, masks, the emission, the JPL round's priorities) and per tail
+#: entry (the hub side-channel's passes)
 TRIP_ROW_BYTES = 64
 TRIP_TAIL_BYTES = 32
 
@@ -213,22 +212,13 @@ def aux_lane_bytes(sc: ShapeClass, alg) -> int:
     return aux.numel() * aux.element_size()
 
 
-def trip_bytes(sc: ShapeClass, b: int, step) -> int:
-    """The intermediates of one dense trip of ``b`` lanes under ``step``,
-    which its capture pool keeps: for the two-phase step (colors, with its
-    (N, W) hub rows) and the JPL round (priorities), the gathered (N, K)
-    int32 tile and the int64 copy of ``ell_idx`` that PyTorch's gather
-    makes of its index, 12 bytes an entry (the pools measured on an H100
-    match it, ``PERF.md``); ``TRIP_ROW_BYTES`` a row and
-    ``TRIP_TAIL_BYTES`` a tail entry for the rest. The fused steps gather
-    inside their kernel."""
-    n = b * sc.n_pad
-    tile = 0
-    if step is ipgc.dense_step:
-        tile = 12 * n * sc.k_pad + n * sc.window
-    elif step is jpl_lane_dense_step:
-        tile = 12 * n * sc.k_pad
-    return tile + TRIP_ROW_BYTES * n + TRIP_TAIL_BYTES * b * sc.t_pad
+def trip_bytes(sc: ShapeClass, b: int) -> int:
+    """The intermediates of one dense trip of ``b`` lanes, which its
+    capture pool keeps: ``TRIP_ROW_BYTES`` a row and ``TRIP_TAIL_BYTES`` a
+    tail entry. No lane step builds an (N, K) tile: their row kernels
+    (``mex_window``, ``conflict``, ``fused_compact``, ``jpl_extrema``)
+    gather the neighbours inside the kernel."""
+    return TRIP_ROW_BYTES * b * sc.n_pad + TRIP_TAIL_BYTES * b * sc.t_pad
 
 
 def group_bytes(sc: ShapeClass, b: int, alg, step=None) -> dict:
@@ -242,7 +232,7 @@ def group_bytes(sc: ShapeClass, b: int, alg, step=None) -> dict:
              + 16 * b + 8 * b)
     need = dict(graph=graph, state=state)
     if step is not None:
-        need["trip"] = trip_bytes(sc, b, step)
+        need["trip"] = trip_bytes(sc, b)
     return need
 
 
@@ -421,7 +411,7 @@ class LaneState:
                 key = (step, window, force_hub, tile_rows)
                 trip = self.trips.get(key)
                 if trip is None:
-                    ensure_fits(dict(trip=trip_bytes(self.sc, self.b, step)),
+                    ensure_fits(dict(trip=trip_bytes(self.sc, self.b)),
                                 self.device,
                                 f"the trip of a lane group of {self.b} x "
                                 f"{self.sc}")

@@ -44,6 +44,18 @@ def gather_rows(ell_idx: torch.Tensor, rows: "torch.Tensor | None",
     return torch.where(ok[:, None], nbr, pad), ok
 
 
+def hub_rows(hub_slot, rows, *tables) -> tuple:
+    """Each (n_hub+1, ...) hub table's rows at the hub slots of ``rows``
+    (all Rg rows when None), false where the slot is ``n_hub`` or the row
+    is empty (table row ``n_hub`` is never read)."""
+    n_hub = tables[0].shape[0] - 1
+    slot, _ = gather_rows(hub_slot[:, None], rows, n_hub)
+    slot = slot[:, 0]
+    is_hub = slot < n_hub
+    return tuple(t[slot] & is_hub.view(-1, *(1,) * (t.dim() - 1))
+                 for t in tables)
+
+
 def conflict_rows_plain(colors, priority, ell_idx, rows, cu, pu, ids,
                         newly) -> torch.Tensor:
     """Plain twin of the kernel: gather the neighbour tiles, then

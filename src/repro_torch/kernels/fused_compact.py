@@ -21,7 +21,7 @@ from repro_torch.graphs.csr import NO_COLOR
 from repro_torch.kernels import _build
 from repro_torch.kernels.compact import compact_plain, scratch
 from repro_torch.kernels.conflict import (conflict_plain, gather_rows,
-                                          require_graph)
+                                          hub_rows, require_graph)
 from repro_torch.kernels.mex_window import MAX_WINDOW, mex_window_plain
 
 
@@ -53,18 +53,6 @@ def check_hub(what: str, hub_forb, hub_lose, hub_slot) -> bool:
     return all(given)
 
 
-def hub_rows(hub_forb, hub_lose, hub_slot, rows
-             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The (R, W) forbidden rows and (R,) lose flags of ``rows`` at their
-    hub slots, false where the slot is ``n_hub`` or the row is empty
-    (table row ``n_hub`` is never read)."""
-    n_hub = hub_forb.shape[0] - 1
-    slot, _ = gather_rows(hub_slot[:, None], rows, n_hub)
-    is_hub = slot[:, 0] < n_hub
-    return (hub_forb[slot[:, 0]] & is_hub[:, None],
-            hub_lose[slot[:, 0]] & is_hub)
-
-
 def fused_compact_rows_plain(colors, priority, ell_idx, rows, base, cu, pu,
                              ids, active, pending, hub_forb, hub_lose,
                              hub_slot, window: int, *, capacity: int,
@@ -76,7 +64,7 @@ def fused_compact_rows_plain(colors, priority, ell_idx, rows, base, cu, pu,
     nbr, ok = gather_rows(ell_idx, rows, colors.shape[0] - 1)
     extra = hl = None
     if check_hub("fused_compact", hub_forb, hub_lose, hub_slot):
-        extra, hl = hub_rows(hub_forb, hub_lose, hub_slot, rows)
+        extra, hl = hub_rows(hub_slot, rows, hub_forb, hub_lose)
     return fused_compact_plain(colors[nbr], priority[nbr], nbr, base, cu, pu,
                                ids, active & ok, pending & ok, extra, hl,
                                window, capacity=capacity,

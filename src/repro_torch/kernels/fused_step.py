@@ -19,8 +19,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.conflict import (conflict_plain, gather_rows,
-                                          require_graph)
-from repro_torch.kernels.fused_compact import check_hub, hub_rows
+                                          hub_rows, require_graph)
+from repro_torch.kernels.fused_compact import check_hub
 from repro_torch.kernels.mex_window import MAX_WINDOW, mex_window_plain
 
 
@@ -43,7 +43,7 @@ def fused_step_rows_plain(colors, priority, ell_idx, rows, base, cu, pu, ids,
     pending = pending & ok
     extra = hl = None
     if check_hub("fused_step", hub_forb, hub_lose, hub_slot):
-        extra, hl = hub_rows(hub_forb, hub_lose, hub_slot, rows)
+        extra, hl = hub_rows(hub_slot, rows, hub_forb, hub_lose)
     lose, first = fused_step_plain(colors[nbr], priority[nbr], nbr, base, cu,
                                    pu, ids, pending, extra, window)
     if hl is not None:

@@ -27,8 +27,10 @@ from repro_torch.kernels.fused_compact import (fused_compact_cuda,
                                                fused_compact_rows_plain)
 from repro_torch.kernels.fused_step import (fused_step_cuda,
                                             fused_step_rows_plain)
-from repro_torch.kernels.jpl_prio import jpl_extrema_cuda, jpl_extrema_plain
-from repro_torch.kernels.mex_window import mex_window_cuda, mex_window_plain
+from repro_torch.kernels.jpl_prio import (jpl_extrema_cuda,
+                                          jpl_extrema_rows_plain)
+from repro_torch.kernels.mex_window import (mex_window_cuda,
+                                            mex_window_rows_plain)
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -39,17 +41,25 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for tensors on {t.device}")
 
 
-def mex_window(nc: torch.Tensor, base: torch.Tensor,
-               extra_forb: "torch.Tensor | None",
-               window: int, tile_rows: "int | None" = None) -> torch.Tensor:
-    """First free window index per row, -1 if the window is full.
+def mex_window(colors: torch.Tensor, ell_idx: torch.Tensor,
+               rows: "torch.Tensor | None", base: torch.Tensor,
+               active: torch.Tensor, hub_forb: "torch.Tensor | None",
+               hub_slot: "torch.Tensor | None", window: int,
+               tile_rows: "int | None" = None) -> torch.Tensor:
+    """First free window index per active row, -1 if the window is full
+    and for the rows that are not active.
 
-    nc (R, K) int32 neighbour colors (pad/uncolored < 0); base (R,) int32;
-    extra_forb (R, W) bool or None.
+    colors int32[N+1] (slot N the pad id's); ell_idx (Rg, K) int32, pad N;
+    rows int32[R] graph rows (values >= Rg are empty rows) or None for all
+    Rg rows; base int32[R]; active bool[R]; on a graph with hubs the
+    (n_hub+1, W) forbidden table and hub_slot int32[Rg], else both None.
+    The neighbours are gathered inside the kernel (see
+    ``kernels/mex_window.py``).
     """
-    if _on_cuda(nc):
-        return mex_window_cuda(nc, base, extra_forb, window, tile_rows)
-    return mex_window_plain(nc, base, extra_forb, window)
+    args = (colors, ell_idx, rows, base, active, hub_forb, hub_slot, window)
+    if _on_cuda(colors):
+        return mex_window_cuda(*args, tile_rows)
+    return mex_window_rows_plain(*args)
 
 
 def conflict(colors: torch.Tensor, priority: torch.Tensor,
@@ -120,13 +130,19 @@ def fused_step(colors, priority, ell_idx, rows, base, cu, pu, ids, pending,
     return fused_step_rows_plain(*args)
 
 
-def jpl_extrema(npr: torch.Tensor, tile_rows: "int | None" = None
+def jpl_extrema(ell_idx: torch.Tensor, rows: "torch.Tensor | None",
+                source, tile_rows: "int | None" = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row (max, min of the entries >= 0) of JPL neighbour priorities;
-    npr (R, K) int32 with inactive entries -1 (see ``kernels/jpl_prio.py``)."""
-    if _on_cuda(npr):
-        return jpl_extrema_cuda(npr, tile_rows)
-    return jpl_extrema_plain(npr)
+    max -1 and min ``LARGE`` for a row without a real neighbour. ell_idx
+    and rows as for ``mex_window``; ``source`` is ``Table(prio)`` (int32[N+1]
+    priorities) or ``Hash(colors, rnd)`` (the round hash of each uncolored
+    neighbour, -1 for the others; ``rnd`` a 0-d int32 round). The
+    neighbours are gathered inside the kernel (see
+    ``kernels/jpl_prio.py``)."""
+    if _on_cuda(ell_idx):
+        return jpl_extrema_cuda(ell_idx, rows, source, tile_rows)
+    return jpl_extrema_rows_plain(ell_idx, rows, source)
 
 
 def frontier_probe(nbr: torch.Tensor,

@@ -1,7 +1,8 @@
-"""Operands of the gathering kernels (``conflict``, ``fused_compact``)
-made with numpy from a seed, and the pre-gathered tiles of the Pallas
-signature they stand for. Imports neither JAX nor torch, so the card's
-tests (``test_torch_cuda.py``) use it too."""
+"""Operands of the gathering kernels (``mex_window``, ``conflict``,
+``fused_compact``, ``fused_step``, ``jpl_extrema``) made with numpy from a
+seed, and the pre-gathered tiles of the Pallas signature they stand for.
+Imports neither JAX nor torch, so the card's tests (``test_torch_cuda.py``)
+use it too."""
 import numpy as np
 
 #: colors[N] and priority[N], the pad id's slots (``graphs/csr.py``)
@@ -84,3 +85,14 @@ def gathered(c) -> dict:
                         n_hub)
         out.update(extra=c["hub_forb"][slot], hl=c["hub_lose"][slot])
     return out
+
+
+def jpl_prio_table(c, seed: int) -> np.ndarray:
+    """A JPL round's int32[n+1] priority table for case ``c``: ~30% of the
+    nodes not pending (-1), the others hashed-size values; slot n (the pad
+    id's) -1."""
+    rng = np.random.default_rng(seed)
+    prio = rng.integers(0, 2**31 - 1, size=c["n"] + 1).astype(np.int32)
+    prio = np.where(rng.random(c["n"] + 1) < 0.3, -1, prio).astype(np.int32)
+    prio[c["n"]] = -1
+    return prio

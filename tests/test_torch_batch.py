@@ -290,8 +290,9 @@ def test_widen_and_take_lanes_carry_the_lanes_verbatim():
 @pytest.mark.parametrize("b", [1, 4])
 def test_group_bytes_are_the_lane_groups_bytes(algo, b):
     """The reckoned graph and state bytes equal what the group owns, for
-    lanes with hubs and without; the trip's tile is reckoned for the steps
-    that gather one (two-phase, JPL) and not for the fused step."""
+    lanes with hubs and without; no lane step builds an (N, K) tile (their
+    row kernels gather inside the kernel), so every trip is reckoned at
+    its rows' and tail entries' intermediates."""
     alg = get_algorithm(algo)
     igs = [ipgc.prepare(_pair(n, s)[1], device="cpu")
            for n, s in (("hollywood-2009_s", 0.01), ("europe_osm_s", 0.005))]
@@ -302,12 +303,12 @@ def test_group_bytes_are_the_lane_groups_bytes(algo, b):
     assert set(need) == {"graph", "state"}
     assert need["graph"] + need["state"] == st.nbytes
     n = b * sc.n_pad
-    rest = batch.trip_bytes(sc, b, ipgc.fused_dense_step)
+    rest = batch.trip_bytes(sc, b)
     assert rest == (batch.TRIP_ROW_BYTES * n
                     + batch.TRIP_TAIL_BYTES * b * sc.t_pad)
-    step = alg.lane_step(False)
-    tile = 12 * n * sc.k_pad + (n * sc.window if algo == "ipgc" else 0)
-    assert batch.group_bytes(sc, b, alg, step)["trip"] == rest + tile
+    for fused in (False, True):
+        step = alg.lane_step(fused)
+        assert batch.group_bytes(sc, b, alg, step)["trip"] == rest
 
 
 def test_run_batch_refuses_before_allocating(monkeypatch):

@@ -27,10 +27,10 @@ from repro_torch.kernels.conflict import conflict_rows_plain
 from repro_torch.kernels.frontier import frontier_probe_plain
 from repro_torch.kernels.fused_compact import fused_compact_rows_plain
 from repro_torch.kernels.fused_step import fused_step_rows_plain
-from repro_torch.kernels.jpl_prio import jpl_extrema_plain
-from repro_torch.kernels.mex_window import mex_window_plain
+from repro_torch.kernels.jpl_prio import Hash, Table, jpl_extrema_rows_plain
+from repro_torch.kernels.mex_window import mex_window_rows_plain
 
-from _gather_cases import gather_case
+from _gather_cases import gather_case, jpl_prio_table
 
 # the test workers share the machine's cores: no intra-op thread pool
 torch.set_num_threads(1)
@@ -49,18 +49,6 @@ def _t(a, dev):
     return None if a is None else torch.from_numpy(np.asarray(a)).to(dev)
 
 
-@pytest.mark.parametrize("r,k,w", [(1, 1, 32), (7, 8, 128), (257, 40, 256),
-                                   (3000, 128, 64), (100, 3, 200)])
-@pytest.mark.parametrize("hub", [False, True])
-def test_row_kernels_match_plain(dev, r, k, w, hub):
-    rng = np.random.default_rng(r + k + w + hub)
-    nc = rng.integers(-2, 300, size=(r, k)).astype(np.int32)
-    base = (rng.integers(0, 4, size=r) * w).astype(np.int32)
-    extra = (rng.random((r, w)) < 0.25) if hub else None
-    m = [_t(a, dev) for a in (nc, base, extra)]
-    assert torch.equal(ops.mex_window(*m, w), mex_window_plain(*m, w))
-
-
 def _gather_args(c, names, dev):
     return [_t(c[name], dev) for name in names]
 
@@ -69,9 +57,36 @@ def _cpu(ts):
     return [None if a is None else a.cpu() for a in ts]
 
 
+def _source_cpu(src):
+    return type(src)(*(x.cpu() for x in src))
+
+
 _CONFLICT = ("colors", "priority", "ell", "rows", "cu", "pu", "ids", "newly")
 _FUSED = ("colors", "priority", "ell", "rows", "base", "cu", "pu", "ids",
           "active", "pending", "hub_forb", "hub_lose", "hub_slot")
+_MEX = ("colors", "ell", "rows", "base", "active", "hub_forb", "hub_slot")
+
+
+def _jpl_sources(c, dev, seed, rnd=3):
+    return (Table(_t(jpl_prio_table(c, seed), dev)),
+            Hash(_t(c["colors"], dev),
+                 torch.tensor(rnd, dtype=torch.int32, device=dev)))
+
+
+@pytest.mark.parametrize("r,k,w", [(1, 1, 32), (7, 8, 128), (257, 40, 256),
+                                   (3000, 128, 64), (100, 3, 200)])
+@pytest.mark.parametrize("hub", [False, True])
+def test_row_kernels_match_plain(dev, r, k, w, hub):
+    """mex_window against its plain twin, rows None and sparse, one launch
+    a call."""
+    for sparse in (False, True):
+        c = gather_case(r + k + w + hub + sparse, r, k, sparse=sparse,
+                        hub=hub, window=w, lo=2)
+        m = _gather_args(c, _MEX, dev)
+        before = _build.KERNEL_LAUNCHES["mex_window"]
+        assert torch.equal(ops.mex_window(*m, w).cpu(),
+                           mex_window_rows_plain(*_cpu(m), w))
+        assert _build.KERNEL_LAUNCHES["mex_window"] == before + 1
 
 
 @pytest.mark.parametrize("rg,k", [(0, 8), (1, 8), (7, 8), (40, 16),
@@ -81,10 +96,11 @@ _FUSED = ("colors", "priority", "ell", "rows", "base", "cu", "pu", "ids",
 @pytest.mark.parametrize("sparse", [False, True])
 @pytest.mark.parametrize("hub", [False, True])
 def test_gather_kernels_match_plain(dev, rg, k, w, sparse, hub):
-    """conflict and fused_compact, which gather the neighbours themselves,
-    against their plain twins: rows None or sparse with sentinels, hub and
-    no-hub, rows of length 0, < K and K, R = 0, truncating capacities, and
-    an unaligned ELL tile (the one-entry loads)."""
+    """mex_window, conflict, fused_compact and jpl_extrema (both
+    sources), which gather the neighbours themselves, against their plain
+    twins: rows None or sparse with sentinels, hub and no-hub, rows of
+    length 0, < K and K, R = 0, truncating capacities, and an unaligned
+    ELL tile (the one-entry loads)."""
     c = gather_case(rg * 5 + k + w + 2 * sparse + hub, rg, k, sparse=sparse,
                     hub=hub, window=w, lo=3)
     r = len(c["cu"])
@@ -111,6 +127,20 @@ def test_gather_kernels_match_plain(dev, rg, k, w, sparse, hub):
             assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
             assert _build.KERNEL_LAUNCHES["fused_compact"] == \
                 before + (2 if r else 1)
+        margs = _gather_args(c, _MEX, dev)
+        margs[1] = args[2]
+        before = _build.KERNEL_LAUNCHES["mex_window"]
+        assert torch.equal(ops.mex_window(*margs, w).cpu(),
+                           mex_window_rows_plain(*_cpu(margs), w))
+        assert _build.KERNEL_LAUNCHES["mex_window"] == before + (r > 0)
+        for src in _jpl_sources(c, dev, rg + k + w):
+            jargs = (args[2], args[3], src)
+            before = _build.KERNEL_LAUNCHES["jpl_prio"]
+            got = ops.jpl_extrema(*jargs)
+            want = jpl_extrema_rows_plain(args[2].cpu(), _cpu([args[3]])[0],
+                                          _source_cpu(src))
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+            assert _build.KERNEL_LAUNCHES["jpl_prio"] == before + (r > 0)
 
 
 @pytest.mark.parametrize("n", [1, 2047, 2049, 100_003])
@@ -144,14 +174,26 @@ def test_compact_many_tiles_repeats_bit_equal(dev, density):
 
 
 def test_wrappers_reject_bad_operands(dev):
-    nc = torch.zeros((4, 8), dtype=torch.int32, device=dev)
+    colors = torch.zeros(9, dtype=torch.int32, device=dev)
+    ell = torch.full((4, 8), 8, dtype=torch.int32, device=dev)
     base = torch.zeros(4, dtype=torch.int32, device=dev)
+    active = torch.ones(4, dtype=torch.bool, device=dev)
     with pytest.raises(ValueError, match="windows of 1..256"):
-        ops.mex_window(nc, base, None, 512)
+        ops.mex_window(colors, ell, None, base, active, None, None, 512)
     with pytest.raises(TypeError, match="int32"):
-        ops.mex_window(nc.long(), base, None, 32)
+        ops.mex_window(colors.long(), ell, None, base, active, None, None, 32)
     with pytest.raises(ValueError, match="contiguous"):
-        ops.mex_window(nc.t().contiguous().t(), base, None, 32)
+        ops.mex_window(colors, ell.t().contiguous().t(), None, base, active,
+                       None, None, 32)
+    with pytest.raises(ValueError, match="together"):
+        ops.mex_window(colors, ell, None, base, active,
+                       torch.zeros((1, 32), dtype=torch.bool, device=dev),
+                       None, 32)
+    with pytest.raises(TypeError, match="int32"):
+        ops.jpl_extrema(ell, None, Hash(colors, torch.zeros(
+            (), dtype=torch.int64, device=dev)))
+    with pytest.raises(TypeError, match="Table or a Hash"):
+        ops.jpl_extrema(ell, None, colors)
 
 
 @pytest.mark.parametrize("fused", [False, True])
@@ -182,19 +224,40 @@ def test_prepared_graph_runs_on_its_device(dev):
                                  (257, 40), (3000, 128), (100, 5)])
 @pytest.mark.parametrize("inactive", [0.3, 1.0])
 def test_jpl_extrema_matches_plain(dev, r, k, inactive):
-    rng = np.random.default_rng(r * 3 + k)
-    npr = rng.integers(0, 2**31 - 1, size=(r, k)).astype(np.int32)
-    npr = np.where(rng.random((r, k)) < inactive, -1, npr).astype(np.int32)
-    x = _t(npr, dev)
-    before = _build.KERNEL_LAUNCHES["jpl_prio"]
-    got, want = ops.jpl_extrema(x), jpl_extrema_plain(x)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert _build.KERNEL_LAUNCHES["jpl_prio"] == before + 1
-    # a tile that is not 16-byte aligned takes the one-entry loads
-    if r > 1 and k % 4 == 0:
-        y = x.reshape(-1)[1:].reshape(-1)[:(r - 1) * k].reshape(r - 1, k)
-        got, want = ops.jpl_extrema(y), jpl_extrema_plain(y)
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    """Both sources, rows None and sparse, every neighbour inactive or a
+    share of them, at rounds 0, 1, 7 and 9999; one launch a call (none for
+    R = 0); an unaligned ELL tile takes the one-entry loads."""
+    for sparse in (False, True):
+        c = gather_case(r * 3 + k + sparse, r, k, sparse=sparse, hub=False)
+        rng = np.random.default_rng(r + k)
+        off = rng.random(c["n"] + 1) < inactive
+        c["colors"] = np.where(off, 5, -1).astype(np.int32)
+        c["colors"][c["n"]] = -2
+        ell = _t(c["ell"], dev)
+        rows = _t(c["rows"], dev)
+        ells = [ell]
+        if r > 1 and k % 4 == 0:
+            flat = torch.empty(ell.numel() + 1, dtype=ell.dtype, device=dev)
+            flat[1:] = ell.reshape(-1)
+            ells.append(flat[1:].view(r, k))
+        for rnd in (0, 1, 7, 9999):
+            prio = np.where(off, -1, jpl_prio_table(c, rnd)).astype(np.int32)
+            prio[c["n"]] = -1
+            for src in (Table(_t(prio, dev)),
+                        Hash(_t(c["colors"], dev),
+                             torch.tensor(rnd, dtype=torch.int32,
+                                          device=dev))):
+                for e in ells:
+                    before = _build.KERNEL_LAUNCHES["jpl_prio"]
+                    got = ops.jpl_extrema(e, rows, src)
+                    want = jpl_extrema_rows_plain(
+                        e.cpu(), None if rows is None else rows.cpu(),
+                        _source_cpu(src))
+                    assert all(torch.equal(a.cpu(), b)
+                               for a, b in zip(got, want))
+                    n_rows = r if rows is None else rows.shape[0]
+                    assert _build.KERNEL_LAUNCHES["jpl_prio"] == \
+                        before + (n_rows > 0)
 
 
 @pytest.mark.parametrize("r,k", [(0, 8), (1, 1), (1, 128), (7, 3),
@@ -632,15 +695,14 @@ def test_row_kernels_match_plain_at_every_tile(dev, tile, rg, k, w, sparse,
     c = gather_case(rg + k + w + tile, rg, k, sparse=sparse, hub=hub,
                     window=w, lo=3)
     r = len(c["cu"])
-    rng = np.random.default_rng(tile + rg)
-    nc = rng.integers(-2, 300, size=(r, k)).astype(np.int32)
-    base = (rng.integers(0, 4, size=r) * w).astype(np.int32)
-    extra = (rng.random((r, w)) < 0.25) if hub else None
-    m = [_t(a, dev) for a in (nc, base, extra)]
-    assert torch.equal(ops.mex_window(*m, w, tile), mex_window_plain(*m, w))
-    npr = _t(np.where(rng.random((r, k)) < 0.3, -1, nc), dev)
-    assert all(torch.equal(a, b) for a, b in
-               zip(ops.jpl_extrema(npr, tile), jpl_extrema_plain(npr)))
+    m = _gather_args(c, _MEX, dev)
+    assert torch.equal(ops.mex_window(*m, w, tile).cpu(),
+                       mex_window_rows_plain(*_cpu(m), w))
+    for src in _jpl_sources(c, dev, tile + rg):
+        a = (m[1], m[2], src)
+        want = jpl_extrema_rows_plain(*_cpu(a[:2]), _source_cpu(src))
+        assert all(torch.equal(x.cpu(), y) for x, y in
+                   zip(ops.jpl_extrema(*a, tile), want))
     args = _gather_args(c, _CONFLICT, dev)
     assert torch.equal(ops.conflict(*args, tile).cpu(),
                        conflict_rows_plain(*_cpu(args)))

@@ -147,7 +147,7 @@ def test_mex_and_conflict_plain_match_pallas_interpret():
     nc, base, extra = _mex_case(rng, 40, 24, 128)
     want = mex_window_pallas(_j(nc), _j(base), _j(extra), 128,
                              interpret=True)
-    _eq(ops.mex_window(_t(nc), _t(base), _t(extra), 128), want)
+    _eq(mex_window_plain(_t(nc), _t(base), _t(extra), 128), want)
     npr = rng.integers(-1, 100, size=(40, 24)).astype(np.int32)
     nid = rng.integers(0, 41, size=(40, 24)).astype(np.int32)
     cu = rng.integers(-2, 300, size=(40,)).astype(np.int32)
@@ -251,5 +251,4 @@ def test_fused_compact_empty_and_full_survivors(state):
 def test_ops_dispatch_rejects_other_devices():
     t = torch.zeros((2, 2), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        ops.mex_window(t, torch.zeros(2, dtype=torch.int32, device="meta"),
-                       None, 32)
+        ops.mex_window(t[0], t, None, t[0], t[0].bool(), None, None, 32)

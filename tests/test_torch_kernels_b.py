@@ -16,7 +16,7 @@ from repro.kernels.jpl_prio import jpl_extrema_pallas
 from repro_torch.algos.jpl import round_hash
 from repro_torch.kernels import ops
 from repro_torch.kernels.frontier import frontier_probe_plain
-from repro_torch.kernels.jpl_prio import LARGE, jpl_extrema_plain
+from repro_torch.kernels.jpl_prio import LARGE, Table, jpl_extrema_plain
 
 # the test workers share the machine's cores: no intra-op thread pool
 torch.set_num_threads(1)
@@ -53,8 +53,11 @@ def test_jpl_extrema_plain_matches_ref_and_pallas(r, k):
                         "pallas")):
         _eq(got[0], want[0], f"max vs {what}")
         _eq(got[1], want[1], f"min vs {what}")
-    # the wrapper sends a CPU tensor to the plain version
-    disp = ops.jpl_extrema(_t(npr))
+    # the wrapper sends CPU tensors to the plain twin: rows of an ELL tile
+    # whose entries index a table holding npr give npr's extrema
+    ell = np.arange(r * k, dtype=np.int32).reshape(r, k)
+    prio = np.append(npr.reshape(-1), np.int32(-1))
+    disp = ops.jpl_extrema(_t(ell), None, Table(_t(prio)))
     assert all(torch.equal(a, b) for a, b in zip(disp, got))
 
 

@@ -329,15 +329,23 @@ def test_ops_take_tile_rows_on_the_cpu():
     """On the CPU the wrappers run the plain versions, which have no tile:
     every tile gives the default's result."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.jpl_prio import Hash, Table
     rng = np.random.default_rng(3)
-    nc = torch.from_numpy(rng.integers(-2, 40, (50, 7)).astype(np.int32))
+    colors = torch.from_numpy(rng.integers(-2, 40, 51).astype(np.int32))
+    ell = torch.from_numpy(rng.integers(0, 51, (50, 7)).astype(np.int32))
     base = torch.zeros(50, dtype=torch.int32)
-    npr = torch.from_numpy(rng.integers(-1, 99, (50, 7)).astype(np.int32))
+    active = torch.ones(50, dtype=torch.bool)
+    prio = torch.from_numpy(rng.integers(-1, 99, 51).astype(np.int32))
+    rnd = torch.tensor(3, dtype=torch.int32)
     for t in (None,) + tune.CANDIDATES:
-        assert torch.equal(ops.mex_window(nc, base, None, 32, t),
-                           ops.mex_window(nc, base, None, 32))
-        assert all(torch.equal(a, b) for a, b in
-                   zip(ops.jpl_extrema(npr, t), ops.jpl_extrema(npr)))
+        assert torch.equal(
+            ops.mex_window(colors, ell, None, base, active, None, None, 32,
+                           t),
+            ops.mex_window(colors, ell, None, base, active, None, None, 32))
+        for source in (Table(prio), Hash(colors, rnd)):
+            assert all(torch.equal(a, b) for a, b in
+                       zip(ops.jpl_extrema(ell, None, source, t),
+                           ops.jpl_extrema(ell, None, source)))
 
 
 @pytest.mark.parametrize("bad", [0, -8, 2.0, True])
