@@ -209,6 +209,24 @@ each failing the script on any error:
    ``retrieval_score`` over 1M candidates and ``forward`` at 262,144 rows.
    Each logs step ms (the median of steps 3-20), its rate (graphs/s, seeds/s,
    samples/s) and peak GiB; all losses and grad norms finite, norms above 0.
+11. mesh (last): the models on meshes of ``cuda:0`` (``launch.mesh``; no
+   kernel of this repo runs there: the reference's models have none).
+   ``mesh.card_vs_cpu``: the Qwen3, Moonshot and Minitron smoke configs
+   (fp32, TF32 off) at (1, 4) and (2, 2), ``batch_axes = fsdp_axes =
+   ("data",)``: forward, prefill plus three decode steps and ``loss_fn``'s
+   gradients, card = the same mesh of the CPU within ``LM_CPU_TOL``; the
+   EquiformerV2 smoke step at four edge shards, card = CPU.
+   ``mesh.lm_serve``: phase 8's Qwen3-30B-A3B weights (drawn again from
+   its seed, their sums checked equal) served at ``LM_SERVE`` unsharded,
+   at (1, 4) and at (2, 4), the
+   experts placed once by ``place_params`` (views): prefill ms, decode ms a
+   step, tok/s, peak GiB; at (1, 4) and a factor that drops no token the
+   prefill and a decode step within ``LM_DECODE_REL`` of the unsharded
+   ones, the peak within ``MESH_PEAK_SLACK_GIB``; at (2, 4) the prefill
+   within ``LM_DECODE_REL`` of two unsharded half-batch prefills.
+   ``mesh.eqv2``: EquiformerV2 at its published config on the molecule
+   shape, five steps unsharded and at four edge shards from one init:
+   step ms and losses, the first losses equal within ``LOSS_RTOL``.
 
 The ``done`` line gives the seconds of each stretch of ``main``
 (``phase_seconds``).
@@ -2862,6 +2880,38 @@ def lm_decode_profile(params, cfg, prompts, reps: int = 3) -> dict:
     return out
 
 
+def _tree_map(fn, tree: dict) -> dict:
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def _tree_to(tree: dict, dev) -> dict:
+    return _tree_map(lambda v: v.to(dev), tree)
+
+
+def lm_serve_params(cfg):
+    """The serving cell's weights: ``cfg`` at random init on the card from
+    ``LM_SEED`` (seconds to draw)."""
+    from repro_torch.models import transformer as tfm
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    with Timer() as t:
+        with torch.inference_mode():
+            params, _ = tfm.init_params(cfg, gen, device=dev)
+        torch.cuda.synchronize()
+    return params, t.seconds
+
+
+def weight_sums(params: dict) -> dict:
+    """Each leaf's sum in fp64: a fingerprint that tells two draws of the
+    weights apart."""
+    out = {}
+    for k, v in params.items():
+        for name, t in (v.items() if isinstance(v, dict) else [("", v)]):
+            out[f"{k}/{name}"] = float(t.double().sum())
+    return out
+
+
 def lm_serve_phase(card: str) -> dict:
     """Qwen3-30B-A3B at its published widths, 8 of 48 layers, bf16: init
     at random from a seed, ``serve()`` with the reference's defaults with
@@ -2869,7 +2919,9 @@ def lm_serve_phase(card: str) -> dict:
     the checks: decode at position 63 equals forward there
     (``LM_DECODE_REL``, at a capacity that drops no token: see the log),
     every logit finite, the int8 run's first decode step within
-    ``LM_INT8_REL`` of the bf16 run's; then ``lm_decode_profile``."""
+    ``LM_INT8_REL`` of the bf16 run's; then ``lm_decode_profile``.
+    Returns the weights' ``weight_sums`` (``mesh_serve_phase`` serves the
+    same weights again after the training phases)."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.serve import serve
     from repro_torch.models import moe as moe_mod
@@ -2882,11 +2934,7 @@ def lm_serve_phase(card: str) -> dict:
     cfg = dataclasses.replace(get_arch(LM_ARCH).make_config(),
                               n_layers=LM_LAYERS)
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
-    with Timer() as t:
-        with torch.inference_mode():
-            params, _ = tfm.init_params(cfg, gen, device=dev)
-        torch.cuda.synchronize()
+    params, init_s = lm_serve_params(cfg)
     n_params = sum(v.numel() for v in (params["embed"], params["lm_head"],
                                        params["final_norm"],
                                        *params["layers"].values()))
@@ -2899,7 +2947,7 @@ def lm_serve_phase(card: str) -> dict:
         head_dim=cfg.head_dim, experts=cfg.moe.n_experts,
         top_k=cfg.moe.top_k, d_ff_expert=cfg.moe.d_ff_expert,
         vocab=cfg.vocab, rope_theta=cfg.rope_theta, dtype=str(cfg.dtype),
-        n_params=n_params, gb=n_params * 2 / 1e9, init_seconds=t.seconds)
+        n_params=n_params, gb=n_params * 2 / 1e9, init_seconds=init_s)
     for kv_int8 in (False, True):       # each cache's first use untimed
         serve(cfg, params=params, batch=LM_SERVE["batch"],
               prompt_len=LM_SERVE["prompt_len"], gen=2, kv_int8=kv_int8,
@@ -2965,10 +3013,11 @@ def lm_serve_phase(card: str) -> dict:
         int8_vs_bf16_max_abs=_max_abs(q8.step_logits, plain.step_logits))
     log(phase="lm.decode_profile", card=card,
         **lm_decode_profile(params, cfg, prompts))
+    sums = weight_sums(params)          # phase 11 serves these again
     del params, runs, plain, q8
     reset_peak()
     torch.cuda.empty_cache()
-    return checks
+    return sums
 
 
 # --- the LM training path -----------------------------------------------------
@@ -2992,6 +3041,24 @@ TRAIN_FULL_OPT = dict(lr=3e-3, warmup_steps=20, total_steps=20,
                       update_in_chunks=True)
 #: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms`` for the block. cuBLAS is
+    deterministic on one stream with a fixed workspace; torch asks for the
+    setting before it allows a GEMM in this mode."""
+    prev_ws = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if prev_ws is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev_ws
 
 
 def _cpu_params(cfg, seed: int = 0):
@@ -3065,27 +3132,13 @@ def train_resume_phase() -> None:
     params = _cpu_params(cfg, 1)
     kw = dict(log=lambda line: None, **TRAIN_SMOKE)
     half = TRAIN_RESUME_STEPS // 2
-    # cuBLAS is deterministic on one stream with a fixed workspace; torch
-    # asks for the setting before it allows a GEMM in this mode
-    prev_ws = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    torch.use_deterministic_algorithms(True)
-    try:
-        with tempfile.TemporaryDirectory() as d:
-            straight = train(cfg, opt_cfg, params=to_device(params, "cuda"),
-                             device="cuda", **kw)
-            first = train(cfg, opt_cfg, steps=half, ckpt_dir=d,
-                          params=to_device(params, "cuda"), device="cuda",
-                          **kw)
-            second = train(cfg, opt_cfg, ckpt_dir=d,
-                           params=to_device(params, "cuda"), device="cuda",
-                           **kw)
-    finally:
-        torch.use_deterministic_algorithms(False)
-        if prev_ws is None:
-            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
-        else:
-            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev_ws
+    with deterministic(), tempfile.TemporaryDirectory() as d:
+        straight = train(cfg, opt_cfg, params=to_device(params, "cuda"),
+                         device="cuda", **kw)
+        first = train(cfg, opt_cfg, steps=half, ckpt_dir=d,
+                      params=to_device(params, "cuda"), device="cuda", **kw)
+        second = train(cfg, opt_cfg, ckpt_dir=d,
+                       params=to_device(params, "cuda"), device="cuda", **kw)
     losses = torch.cat([first.losses, second.losses])
     same_params = all(torch.equal(a, b) for a, b in zip(
         tree_leaves(second.params), tree_leaves(straight.params)))
@@ -3483,6 +3536,304 @@ def gnn_phase(card: str, mark) -> None:
     mark("recsys.train")
 
 
+# --- the models on a device mesh ---------------------------------------------------
+
+#: the smoke configs of ``mesh.card_vs_cpu`` (two MoE stacks and a dense
+#: one) and its meshes of ``cuda:0``, the batch and the expert ``ff`` both
+#: over ``data``
+MESH_SMOKE_ARCHS = ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b",
+                    "minitron-4b")
+MESH_SHAPES = ((1, 4), (2, 2))
+MESH_AXES = dict(batch_axes=("data",), fsdp_axes=("data",))
+#: ``mesh.lm_serve``'s meshes: experts over 4 model shards, and the batch
+#: split in two besides
+MESH_SERVE = ((1, 4), (2, 4))
+#: ``mesh.lm_serve``: the (1, 4) run's peak may exceed the unsharded
+#: run's by this much (no weight is copied: the placed experts are views)
+MESH_PEAK_SLACK_GIB = 1.0
+#: ``mesh.eqv2``: edge shards and steps
+MESH_EQV2_SHARDS = 4
+MESH_EQV2_STEPS = 5
+
+
+def _lm_mesh_outputs(params, cfg, toks, mesh) -> dict:
+    """Forward logits, prefill of 9 tokens and three teacher-forced decode
+    steps, and ``loss_fn``'s gradient of each leaf, on ``mesh``."""
+    from repro_torch.models import transformer as tfm
+
+    kw = dict(mesh=mesh, **MESH_AXES)
+    out = {"forward": tfm.forward(params, toks, cfg, **kw)[0]}
+    last, cache = tfm.prefill(params, toks[:, :9], cfg, max_len=16, **kw)
+    out["prefill"] = last
+    for i in range(9, 12):
+        out[f"decode{i}"], cache = tfm.decode_step(params, toks[:, i:i + 1],
+                                                   cache, cfg, **kw)
+    grad_params = _tree_map(lambda v: v.detach().clone().requires_grad_(),
+                            params)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    loss, _ = tfm.loss_fn(grad_params, batch, cfg, **kw)
+    loss.backward()
+    out["loss"] = loss.detach()
+    for k, v in grad_params.items():
+        for name, t in (v.items() if isinstance(v, dict) else [("", v)]):
+            out[f"grad/{k}/{name}"] = t.grad
+    return out
+
+
+def mesh_card_vs_cpu_phase() -> None:
+    """The MoE and dense LM smoke configs in fp32 (TF32 off) on meshes
+    (1, 4) and (2, 2) of ``cuda:0`` and of the CPU, the same weights and
+    tokens: forward, prefill plus three decode steps and ``loss_fn``'s
+    gradients within ``LM_CPU_TOL`` (logits absolute over max(1, their
+    largest); each gradient leaf relative to its largest); then the
+    EquiformerV2 smoke step at four edge shards, card = CPU within the
+    GNN parity tolerances."""
+    import _gnn_steps as gs
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_mesh
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for arch in MESH_SMOKE_ARCHS:
+            cfg = get_arch(arch).make_smoke()
+            params = _cpu_params(cfg)
+            card = _tree_to(params, "cuda")
+            toks = torch.from_numpy(np.random.default_rng(1).integers(
+                0, cfg.vocab, (4, 12)))
+            for shape in MESH_SHAPES:
+                want = _lm_mesh_outputs(params, cfg, toks, make_mesh(
+                    shape, ("data", "model"), "cpu"))
+                got = _lm_mesh_outputs(card, cfg, toks.cuda(), make_mesh(
+                    shape, ("data", "model"), "cuda:0"))
+                errs = {}
+                for k, w in want.items():
+                    scale = float(w.abs().max()) if k.startswith("grad/") \
+                        else max(1.0, float(w.abs().max()))
+                    errs[k] = _max_abs(got[k].cpu(), w) / max(scale, 1e-30)
+                bad = {k: e for k, e in errs.items() if not e <= LM_CPU_TOL}
+                if bad:
+                    raise AssertionError(f"mesh {arch} {shape}: the card "
+                                         f"differs from the CPU: {bad}")
+                log(phase="mesh.card_vs_cpu", arch=arch, mesh=list(shape),
+                    **MESH_AXES, loss=float(want["loss"]),
+                    worst=max(errs.values()),
+                    worst_of=max(errs, key=errs.get), tol=LM_CPU_TOL,
+                    equal=True)
+        log(phase="mesh.card_vs_cpu", arch="equiformer-v2",
+            edge_shards=MESH_EQV2_SHARDS, edge_shard_axes=["data"],
+            gaps=gs.eqv2_mesh_card_vs_cpu(torch.device("cuda"),
+                                           MESH_EQV2_SHARDS),
+            tol=dict(loss=gs.LOSS_RTOL, grads=gs.GRAD_TOL,
+                     attn=gs.ATTN_GRAD_TOL, params=gs.PARAM_TOL),
+            equal=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _serve_run(cfg, params, mesh, gen: int = LM_SERVE["gen"]):
+    """``serve()`` at ``LM_SERVE`` on ``mesh`` (None: unsharded), prompts
+    and sampling from seed 1; (result, peak GiB of the run)."""
+    from repro_torch.launch.serve import serve
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kw = {} if mesh is None else dict(mesh=mesh, **MESH_AXES)
+    r = serve(cfg, params=params, generator=torch.Generator(
+        device="cuda").manual_seed(1), **{**LM_SERVE, "gen": gen}, **kw)
+    return r, torch.cuda.max_memory_allocated() / 2**30
+
+
+def mesh_serve_phase(card: str, lm_sums: dict) -> None:
+    """Phase 8's Qwen3-30B-A3B weights (8 of 48 layers, bf16), drawn again
+    from ``LM_SEED`` (their ``weight_sums`` equal to phase 8's, ``lm_sums``;
+    holding them on the host between the phases would add 11.2 GB to the
+    host's peak), their experts placed once (``place_params``: views) on
+    meshes (1, 4) and (2, 4) of ``cuda:0``; ``serve()`` at ``LM_SERVE`` on
+    each and without a mesh, each after an untimed warm-up. Checks: the
+    (1, 4) run's peak within ``MESH_PEAK_SLACK_GIB`` of the unsharded
+    run's; then, under ``deterministic()`` (a repeat bit-equal), at (1, 4)
+    and a capacity that drops no token the prefill and a decode step
+    (position 63, teacher-forced) within ``LM_DECODE_REL`` of the
+    unsharded ones, and at (2, 4) the prefill logits within
+    ``LM_DECODE_REL`` of two unsharded prefills of the half batches (each
+    data shard's MoE sees only its own tokens, its capacity theirs)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_mesh, place_params
+    from repro_torch.models import transformer as tfm
+
+    free_card()
+    cfg = dataclasses.replace(get_arch(LM_ARCH).make_config(),
+                              n_layers=LM_LAYERS)
+    params, init_s = lm_serve_params(cfg)
+    if weight_sums(params) != lm_sums:
+        raise AssertionError("mesh serve: other weights than phase 8's")
+    meshes = {s: make_mesh(s, ("data", "model"), "cuda:0")
+              for s in MESH_SERVE}
+    placed = {s: place_params(params, m, fsdp_axes=MESH_AXES["fsdp_axes"])
+              for s, m in meshes.items()}
+    log(phase="mesh.lm_init", arch=LM_ARCH, layers=cfg.n_layers,
+        init_seconds=init_s, same_weights_as_phase_8=True,
+        resident_gib=torch.cuda.memory_allocated() / 2**30)
+    runs, base_peak = {}, None
+    with torch.inference_mode():
+        for shape in (None, *MESH_SERVE):
+            p = params if shape is None else placed[shape]
+            m = None if shape is None else meshes[shape]
+            _serve_run(cfg, p, m, gen=2)          # warm-up
+            r, peak = _serve_run(cfg, p, m)
+            if not (torch.isfinite(r.prefill_logits).all()
+                    and torch.isfinite(r.step_logits).all()):
+                raise AssertionError(f"mesh serve {shape}: a logit is not "
+                                     "finite")
+            runs[shape] = r
+            log(phase="mesh.lm_serve", card=card, arch=LM_ARCH,
+                layers=cfg.n_layers, mesh=list(shape) if shape else None,
+                **(MESH_AXES if shape else {}), **LM_SERVE,
+                prefill_ms=r.prefill_s * 1e3, prefill_tok_s=r.prefill_tok_s,
+                decode_ms_per_step=r.decode_ms_per_step,
+                decode_tok_s=r.decode_tok_s, peak_gib=peak,
+                peak_over_unsharded_gib=None if shape is None
+                else peak - base_peak, finite=True)
+            if shape is None:
+                base_peak = peak
+            elif shape == (1, 4) and not peak - base_peak <= \
+                    MESH_PEAK_SLACK_GIB:
+                raise AssertionError(f"mesh serve (1, 4): peak {peak} GiB "
+                                     f"against {base_peak} unsharded")
+        prompts = runs[None].prompts
+        for r in runs.values():
+            if not torch.equal(r.prompts, prompts):
+                raise AssertionError("mesh serve: the runs served other "
+                                     "prompts")
+    no_drop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    half = LM_SERVE["batch"] // 2
+    # the checks under deterministic algorithms: each number below is the
+    # same in every run on this software, not one draw of the atomics'
+    # order (a near tie in a router flips with it)
+    with torch.inference_mode(), deterministic():
+        out = {}
+        for shape, p, m in ((None, params, None),
+                            ((1, 4), placed[(1, 4)], meshes[(1, 4)])):
+            kw = {} if m is None else dict(mesh=m, **MESH_AXES)
+            last, cache = tfm.prefill(p, prompts[:, :63], no_drop,
+                                      max_len=64, **kw)
+            step, _ = tfm.decode_step(p, prompts[:, 63:64], cache, no_drop,
+                                      **kw)
+            out[shape] = (last, step)
+            del cache
+        again = tfm.prefill(placed[(1, 4)], prompts[:, :63], no_drop,
+                            mesh=meshes[(1, 4)], **MESH_AXES)[0]
+        one_by_four = dict(
+            prefill_rel=_rel(out[(1, 4)][0], out[None][0]),
+            decode_rel=_rel(out[(1, 4)][1], out[None][1]),
+            repeat_equal=bool(torch.equal(again, out[(1, 4)][0])),
+            served_prefill_rel=_rel(runs[(1, 4)].prefill_logits,
+                                    runs[None].prefill_logits))
+        two = tfm.prefill(placed[(2, 4)], prompts, cfg, mesh=meshes[(2, 4)],
+                          **MESH_AXES)[0]
+        halves = torch.cat([tfm.prefill(params, prompts[:half], cfg)[0],
+                            tfm.prefill(params, prompts[half:], cfg)[0]])
+        two_by_four = dict(
+            prefill_vs_halves_rel=_rel(two, halves),
+            prefill_vs_whole_batch_rel=_rel(
+                two, tfm.prefill(params, prompts, cfg)[0]),
+            served_vs_halves_rel=_rel(runs[(2, 4)].prefill_logits, halves))
+    if not (one_by_four["prefill_rel"] <= LM_DECODE_REL
+            and one_by_four["decode_rel"] <= LM_DECODE_REL
+            and one_by_four["repeat_equal"]):
+        raise AssertionError(f"mesh (1, 4): {one_by_four} from the "
+                             "unsharded run")
+    if not two_by_four["prefill_vs_halves_rel"] <= LM_DECODE_REL:
+        raise AssertionError(f"mesh (2, 4): {two_by_four} from the half "
+                             "batches")
+    log(phase="mesh.lm_checks", one_by_four=one_by_four,
+        one_by_four_capacity_factor=no_drop.moe.capacity_factor,
+        two_by_four=two_by_four, tol=LM_DECODE_REL, deterministic=True,
+        equal=True)
+    del params, placed, runs, out, halves, two, again
+    free_card()
+
+
+def mesh_eqv2_phase(card: str) -> None:
+    """EquiformerV2 at its published config on the ``molecule`` shape
+    (``gnn_molecule_phase``'s batch and targets), ``MESH_EQV2_STEPS`` steps
+    unsharded and then with each edge chunk split over
+    ``MESH_EQV2_SHARDS`` shards of ``cuda:0``, from the same init: each
+    run's step ms and losses; the first step's loss within
+    ``LOSS_RTOL`` of the unsharded one (the same weights: only the sums'
+    order differs)."""
+    import _gnn_steps as gs
+    from repro_torch.configs import get_arch
+    from repro_torch.data import pipelines as rnd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.gnn.common import random_graph_batch
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    m = MOLECULE
+    base = get_arch("equiformer-v2").make_config()
+    batch = random_graph_batch(rnd.prng_key(0), m["n_nodes"], m["n_edges"],
+                               m["d_feat"], coords=True,
+                               n_graphs=m["n_graphs"])
+    targets = torch.from_numpy(rnd.normal(rnd.prng_key(1),
+                                          (m["n_graphs"],))).cuda()
+    runs = {}
+    for shards in (None, MESH_EQV2_SHARDS):
+        free_card()
+        cfg = base if shards is None else dataclasses.replace(
+            base, edge_shard_axes=("data",))
+        mesh = None if shards is None else make_mesh((shards,), ("data",),
+                                                     "cuda:0")
+        params, _ = gs.GNN_MODS["equiformer-v2"].init_params(cfg)
+        state = [params, adamw_init(params)]
+        step = gs.full_step("equiformer-v2", cfg, AdamWConfig(), mesh=mesh)
+
+        def one(i):
+            state[0], state[1], met = step(state[0], state[1], batch,
+                                           targets)
+            return met
+
+        ms, metrics = timed_steps(one, MESH_EQV2_STEPS)
+        losses = [float(x["loss"]) for x in metrics]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"mesh eqv2 {shards}: losses {losses}")
+        runs[shards] = losses
+        log(phase="mesh.eqv2", card=card, arch="equiformer-v2",
+            edge_shards=shards, edge_chunk=cfg.edge_chunk, **m,
+            step_ms=ms, step_ms_median_2_5=float(np.median(ms[1:])),
+            graphs_s=m["n_graphs"] / (float(np.median(ms[1:])) / 1e3),
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            losses=losses)
+        del params, state, metrics
+    first = abs(runs[MESH_EQV2_SHARDS][0] - runs[None][0]) / abs(runs[None][0])
+    if not first <= gs.LOSS_RTOL:
+        raise AssertionError(f"mesh eqv2: first loss {first} relative from "
+                             "the unsharded step's")
+    log(phase="mesh.eqv2_checks", first_loss_rel=first,
+        last_loss_rel=abs(runs[MESH_EQV2_SHARDS][-1] - runs[None][-1])
+        / abs(runs[None][-1]), tol=gs.LOSS_RTOL, equal=True)
+    free_card()
+
+
+def mesh_phase(card: str, mark, lm_sums: dict) -> None:
+    """Phase 11: the models on a device mesh (no kernel of this repo: the
+    reference's models have none). ``lm_sums``: phase 8's
+    ``weight_sums``."""
+    mesh_card_vs_cpu_phase()
+    mark("mesh.card_vs_cpu")
+    mesh_serve_phase(card, lm_sums)
+    mark("mesh.lm_serve")
+    mesh_eqv2_phase(card)
+    mark("mesh.eqv2")
+
+
+def host_peak_gib() -> float:
+    """This process's peak resident host memory (``ru_maxrss``, KiB on
+    Linux), GiB."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3568,7 +3919,7 @@ def main() -> int:
     del big, kron, road
     lm_card_vs_cpu_phase()
     mark("lm.card_vs_cpu")
-    lm_serve_phase(card)
+    lm_sums = lm_serve_phase(card)
     mark("lm.serve")
     train_card_vs_cpu_phase()
     mark("train.card_vs_cpu")
@@ -3577,6 +3928,7 @@ def main() -> int:
     train_full_phase(card)
     mark("train.full")
     gnn_phase(card, mark)
+    mesh_phase(card, mark, lm_sums)
     tune_dir.cleanup()
     for name, row in rows.items():
         row["launches"] = totals[SOURCES[name][2]]
@@ -3588,7 +3940,7 @@ def main() -> int:
             for o in by.values())
     reset_peak()
     log(phase="done", seconds=time.perf_counter() - t_start,
-        peak_mem_gb=_peak_bytes / 2**30,
+        peak_mem_gb=_peak_bytes / 2**30, host_peak_gib=host_peak_gib(),
         phase_seconds={b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])})
     print(card, flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

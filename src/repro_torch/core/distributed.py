@@ -58,7 +58,7 @@ from repro_torch.core import ipgc
 from repro_torch.core.worklist import Worklist, compact_items, resize_block
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.obs.metrics import CounterGroup
+from repro_torch.obs.metrics import default_registry
 
 NO_COLOR = ipgc.NO_COLOR
 
@@ -67,8 +67,8 @@ NO_COLOR = ipgc.NO_COLOR
 #: the dense exchange; a packed publish of the boundary exchange counts
 #: ``boundary_pack`` AND ``dense_swap``, since it computes both and selects
 #: one on the device (the reference's trace-time count of both branches)
-EXCHANGE_COUNTS = CounterGroup("dist.exchanges",
-                               ("color_psum", "boundary_pack", "dense_swap"))
+EXCHANGE_COUNTS = default_registry().group(
+    "dist.exchanges", ("color_psum", "boundary_pack", "dense_swap"))
 
 EXCHANGES = ("dense", "boundary", "auto")
 

@@ -44,7 +44,7 @@ from repro_torch.graphs.csr import Graph
 from repro_torch.kernels import csr_segment as kcsr
 from repro_torch.kernels import ops
 from repro_torch.kernels.csr_segment import flags_at
-from repro_torch.obs.metrics import CounterGroup
+from repro_torch.obs.metrics import default_registry
 
 NO_COLOR = int(csr.NO_COLOR)
 PAD_COLOR = int(csr.PAD_COLOR)
@@ -321,9 +321,10 @@ def _has_hubs(ig: IPGCGraph, force_hub: "bool | None") -> bool:
 # mex/conflict/compact for the three passes of a two-phase step, fused for
 # a one-pass fused step (DESIGN.md §10). The CUDA launches behind them are
 # counted per kernel in ``kernels.ops.KERNEL_LAUNCHES``.
-GATHER_COUNTS = CounterGroup("ipgc.gathers", ("neighbor_colors",))
-LAUNCH_COUNTS = CounterGroup("ipgc.launches",
-                             ("mex", "conflict", "compact", "fused"))
+GATHER_COUNTS = default_registry().group("ipgc.gathers",
+                                         ("neighbor_colors",))
+LAUNCH_COUNTS = default_registry().group(
+    "ipgc.launches", ("mex", "conflict", "compact", "fused"))
 
 
 def _gather_neighbor_colors(colors: torch.Tensor,

@@ -57,6 +57,18 @@ class AlwaysSparse:
         return n  # count <= n always, so count > n is never true
 
 
+def fixed_h(h: float = 0.6) -> Policy:
+    return FixedH(h)
+
+
+def always_dense() -> Policy:
+    return AlwaysDense()
+
+
+def always_sparse() -> Policy:
+    return AlwaysSparse()
+
+
 def device_threshold(pol: Policy, n: int) -> int:
     """Int threshold t with ``pol(count, n) == (count > t)`` for monotone
     policies. Built-ins answer directly; other callables are bisected."""

@@ -7,13 +7,16 @@ from repro_torch.graphs.csr import (  # noqa: F401
     Graph,
     GraphArrays,
     build_graph,
+    degree_stats,
     NO_COLOR,
     PAD_COLOR,
+    validate_coloring,
 )
 from repro_torch.graphs.ingest import EdgeList  # noqa: F401
 from repro_torch.graphs.layout import LAYOUT_KINDS, LayoutPlan, plan_layout  # noqa: F401
 from repro_torch.graphs.transform import REORDERINGS, Permutation  # noqa: F401
-from repro_torch.graphs.generators import SUITE_SPECS  # noqa: F401
+from repro_torch.graphs.generators import (SUITE_SPECS, load_mtx,  # noqa: F401
+                                          make_graph, make_suite)
 from repro_torch.graphs.registry import (  # noqa: F401
     clear_dataset_cache,
     dataset_names,

@@ -111,3 +111,28 @@ def build_graph(
         ingest.from_arrays(src, dst, n_nodes, name=name),
         symmetrize=symmetrize, reorder=reorder, seed=seed, layout=layout,
         ell_cap=ell_cap)
+
+
+def degree_stats(g: Graph) -> dict:
+    """The graph's size, degree spread, ELL width, COO tail and layout."""
+    deg = np.asarray(g.arrays.degrees)
+    return {
+        "name": g.name,
+        "nodes": g.n_nodes,
+        "edges": g.n_edges,
+        "d_min": int(deg.min()),
+        "d_median": int(np.median(deg)),
+        "d_max": int(deg.max()),
+        "d_mean": float(deg.mean()),
+        "ell_width": g.ell_width,
+        "tail_entries": int((np.asarray(g.arrays.tail_src) != g.n_nodes).sum()),
+        "layout": g.layout.kind if g.layout is not None else "ell-tail",
+    }
+
+
+def validate_coloring(g: Graph, colors: np.ndarray) -> dict:
+    """Conflicts, uncolored nodes and colors of a coloring: a reporting
+    wrapper over ``core.verify.coloring_stats`` (``verify_coloring``
+    raises with a named offender instead of returning counts)."""
+    from repro_torch.core.verify import coloring_stats   # no import cycle
+    return coloring_stats(g, colors)

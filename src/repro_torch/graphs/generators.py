@@ -206,3 +206,35 @@ def _scaled(kwargs: dict, scale: float) -> dict:
         import math
         out["scale"] = max(out["scale"] + int(round(math.log2(max(scale, 1e-9)))), 6)
     return out
+
+
+def make_graph(name: str, *, scale: float = 1.0, seed: int = 0,
+               ell_cap: int = 128, layout="ell-tail",
+               reorder: str = "identity"):
+    """A suite graph (``SUITE_SPECS``) built through the staged pipeline,
+    uncached (``registry.get_dataset`` is the cached entry point)."""
+    from repro_torch.graphs.csr import build_graph
+    family, kwargs = SUITE_SPECS[name]
+    src, dst, n = _FAMILY[family](seed, **_scaled(kwargs, scale))
+    return build_graph(src, dst, n, name=name, ell_cap=ell_cap,
+                       layout=layout, reorder=reorder, seed=seed)
+
+
+def make_suite(*, scale: float = 1.0, seed: int = 0, ell_cap: int = 128,
+               names: "list[str] | None" = None, layout="ell-tail",
+               reorder: str = "identity") -> dict:
+    """``make_graph`` of each of ``names`` (default: the whole suite)."""
+    names = names or list(SUITE_SPECS)
+    return {n: make_graph(n, scale=scale, seed=seed, ell_cap=ell_cap,
+                          layout=layout, reorder=reorder) for n in names}
+
+
+def load_mtx(path: str, *, name: "str | None" = None, ell_cap: int = 128,
+             layout="ell-tail", reorder: str = "identity"):
+    """A MatrixMarket graph file through the pipeline: ``ingest.from_mtx``
+    parses it (and checks its header), ``build_graph`` does the rest."""
+    from repro_torch.graphs.csr import build_graph
+    from repro_torch.graphs.ingest import from_mtx
+    e = from_mtx(path, name=name)
+    return build_graph(e.src, e.dst, e.n_nodes, name=e.name,
+                       ell_cap=ell_cap, layout=layout, reorder=reorder)

@@ -1,1 +1,2 @@
-"""Launchers: the LM serving driver (``repro/launch``)."""
+"""Launchers (``repro/launch``): the LM serving and training drivers, and
+the device meshes the models' mesh forms run on."""

@@ -71,21 +71,28 @@ class ServeResult:
                     decode_tok_s=self.decode_tok_s)
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+def _sync(dev: torch.device, mesh=None) -> None:
+    devs = [dev] if mesh is None else [dev, *mesh.distinct_devices()]
+    for d in devs:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 def serve(cfg: tfm.LMConfig, *, batch: int = 8, prompt_len: int = 64,
           gen: int = 32, temperature: float = 0.8, kv_int8: bool = False,
           device=None, generator: "torch.Generator | None" = None,
-          params: "dict | None" = None) -> ServeResult:
+          params: "dict | None" = None, mesh=None, batch_axes: tuple = (),
+          fsdp_axes: tuple = ()) -> ServeResult:
     """Serve one batch: random prompts (from ``generator``), prefill into
     a cache with room for ``gen`` more tokens (re-quantized to int8 with
     ``kv_int8``), then ``gen - 1`` decode steps. ``params`` None draws the
     weights from ``generator`` first (timed as ``init_s``). ``device``
     None is the CUDA device; ``generator`` None one seeded with 0 there.
-    Every time ends in a device synchronisation."""
+    ``mesh``, ``batch_axes`` and ``fsdp_axes`` go to ``prefill`` and
+    ``decode_step`` (``launch.mesh``; ``params`` may hold
+    ``place_params``' expert shards). Every time ends in a device
+    synchronisation (of each device of the mesh)."""
+    shard = dict(mesh=mesh, batch_axes=batch_axes, fsdp_axes=fsdp_axes)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev)
@@ -103,10 +110,10 @@ def serve(cfg: tfm.LMConfig, *, batch: int = 8, prompt_len: int = 64,
 
         with Timer() as t:
             logits, cache = tfm.prefill(params, prompts, cfg,
-                                        max_len=max_len)
+                                        max_len=max_len, **shard)
             if kv_int8:
                 cache = tfm.quantize_cache(cache)
-            _sync(dev)
+            _sync(dev, mesh)
         prefill_s = t.seconds
         prefill_logits = logits
 
@@ -115,13 +122,14 @@ def serve(cfg: tfm.LMConfig, *, batch: int = 8, prompt_len: int = 64,
         step_logits = None
         with Timer() as t:
             for i in range(gen - 1):
-                logits, cache = tfm.decode_step(params, toks, cache, cfg)
+                logits, cache = tfm.decode_step(params, toks, cache, cfg,
+                                                **shard)
                 if i == 0:
                     step_logits = logits
                 probs = torch.softmax(logits.float() / temperature, dim=-1)
                 toks = torch.multinomial(probs, 1, generator=generator)
                 out.append(toks)
-            _sync(dev)
+            _sync(dev, mesh)
         decode_s = t.seconds
     return ServeResult(tokens=torch.cat(out, dim=1), prompts=prompts,
                        prefill_logits=prefill_logits,

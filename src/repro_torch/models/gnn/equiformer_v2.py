@@ -22,7 +22,9 @@ Scaling: edges are walked in fixed-size chunks (a Python loop, the
 reference's ``lax.scan``), accumulating the softmax's numerator and
 denominator. Wigner matrices are built inside each chunk from the (E, 3)
 unit vectors, never for the whole edge set. Degenerate edges (pads /
-zero-length) carry no valid frame and are masked.
+zero-length) carry no valid frame and are masked. With
+``edge_shard_axes`` and a ``mesh``, each chunk is split over the mesh's
+devices on those axes (``forward``).
 """
 from __future__ import annotations
 
@@ -134,37 +136,61 @@ def _so2_conv(xr: torch.Tensor, p: dict, i: int, cfg: EqV2Config
     return out
 
 
-def _layer(x, p, i, edges, cfg: EqV2Config):
+def _edge_messages(h, q, p, i, part, cfg: EqV2Config, n: int):
+    """One part of an edge chunk: its attention-weighted messages scattered
+    into (N, S, C) and its weights into (N, C), on the part's device."""
+    s_c, d_c, u_c, r_c, o_c = part
+    hd = cfg.channels // cfg.n_heads
+    valid = o_c[:, None]
+    s_s = torch.clamp(s_c, max=n - 1)
+    d_s = torch.clamp(d_c, max=n - 1)
+    wig = so3.wigner_d_from_r(so3.rotation_to_z(u_c), cfg.l_max)
+    xr = torch.bmm(wig, h[s_s])                       # (e, S, C)
+    y = _so2_conv(xr, p, i, cfg)
+    gate = F.silu(r_c @ p[f"gate_{i}"] + p[f"gateb_{i}"])
+    y = y * gate[:, None, :]
+    msg = torch.bmm(wig.transpose(1, 2), y)           # rotate back (D^T)
+    k = msg[:, 0, :] @ p[f"attn_k_{i}"]               # (e, heads)
+    logit = 8.0 * torch.tanh((q[d_s] + k) / 8.0)
+    a = torch.exp(logit) * valid
+    msg_h = msg.reshape(-1, cfg.s_dim, cfg.n_heads, hd)
+    msg_w = (msg_h * a[:, None, :, None]).reshape(-1, cfg.s_dim,
+                                                  cfg.channels)
+    return (g.scatter_sum(msg_w, d_c, n),
+            g.scatter_sum(a.repeat_interleave(hd, dim=-1), d_c, n))
+
+
+def _layer(x, p, i, edges, cfg: EqV2Config, devices=None):
     """One eSCN attention block + FFN.
 
     edges: per-chunk tuples (src, dst, unit, rbf, edge_ok); the Wigner
-    matrices are built per chunk.
+    matrices are built per chunk. With ``devices`` (the edge shards'),
+    each chunk is split into one part a device, each part's messages are
+    computed there, and the partial scatters are summed on ``x``'s device.
     """
     n = x.shape[0]
     h = _eq_norm(x, p[f"norm_{i}"], cfg.l_max)
     q = h[:, 0, :] @ p[f"attn_q_{i}"]                    # (N, heads)
-    hd = cfg.channels // cfg.n_heads
 
     num = torch.zeros_like(x)
     den = x.new_zeros((n, cfg.channels))
-    for s_c, d_c, u_c, r_c, o_c in edges:
-        valid = o_c[:, None]
-        s_s = torch.clamp(s_c, max=n - 1)
-        d_s = torch.clamp(d_c, max=n - 1)
-        wig = so3.wigner_d_from_r(so3.rotation_to_z(u_c), cfg.l_max)
-        xr = torch.bmm(wig, h[s_s])                       # (e, S, C)
-        y = _so2_conv(xr, p, i, cfg)
-        gate = F.silu(r_c @ p[f"gate_{i}"] + p[f"gateb_{i}"])
-        y = y * gate[:, None, :]
-        msg = torch.bmm(wig.transpose(1, 2), y)           # rotate back (D^T)
-        k = msg[:, 0, :] @ p[f"attn_k_{i}"]               # (e, heads)
-        logit = 8.0 * torch.tanh((q[d_s] + k) / 8.0)
-        a = torch.exp(logit) * valid
-        msg_h = msg.reshape(-1, cfg.s_dim, cfg.n_heads, hd)
-        msg_w = (msg_h * a[:, None, :, None]).reshape(-1, cfg.s_dim,
-                                                      cfg.channels)
-        num = num + g.scatter_sum(msg_w, d_c, n)
-        den = den + g.scatter_sum(a.repeat_interleave(hd, dim=-1), d_c, n)
+    mine = {}                           # the layer's operands on a device
+    for dev in devices or ():
+        if dev not in mine:
+            mine[dev] = (h.to(dev), q.to(dev),
+                         {k: v.to(dev) for k, v in p.items()
+                          if k.endswith(f"_{i}")})
+    for chunk in edges:
+        if devices is None:
+            parts = [(chunk, h, q, p)]
+        else:
+            parts = [(tuple(a.to(dev) for a in part), *mine[dev])
+                     for dev, part in zip(devices, zip(
+                         *(a.tensor_split(len(devices)) for a in chunk)))]
+        for part, h_d, q_d, p_d in parts:
+            num_p, den_p = _edge_messages(h_d, q_d, p_d, i, part, cfg, n)
+            num = num + num_p.to(x.device)
+            den = den + den_p.to(x.device)
     agg = num / torch.clamp(den, min=1e-9)[:, None, :]
     x = x + agg @ p[f"proj_{i}"]
 
@@ -177,13 +203,22 @@ def _layer(x, p, i, edges, cfg: EqV2Config):
     return x + u @ p[f"ffn_out_{i}"]
 
 
-def forward(params, batch: g.GraphBatch, cfg: EqV2Config) -> torch.Tensor:
-    """Returns per-graph energies."""
+def forward(params, batch: g.GraphBatch, cfg: EqV2Config, *,
+            mesh=None) -> torch.Tensor:
+    """Returns per-graph energies.
+
+    With ``cfg.edge_shard_axes``, each edge chunk is split over the
+    devices of ``mesh`` (a ``launch.mesh.DeviceMesh``) along those axes,
+    the reference's sharding constraint on the chunks: each part's
+    messages on its own device, the partial scatters summed on the
+    parameters' device. Without a mesh, edge shard axes are refused (the
+    reference's constraint needs a mesh in context)."""
+    devices = None
     if cfg.edge_shard_axes:
-        raise NotImplementedError(
-            "sharding the edge chunks over a mesh (edge_shard_axes) is not "
-            "ported: it waits for the multi-card backend (ROADMAP Queue A "
-            "item 13); pass edge_shard_axes=()")
+        if mesh is None:
+            raise ValueError(f"edge_shard_axes {cfg.edge_shard_axes} shard "
+                             "the edge chunks over a mesh: pass mesh=")
+        devices = [mesh.device(**c) for c in mesh.coords(cfg.edge_shard_axes)]
     n = batch.node_feat.shape[0]
     e_total = batch.edge_src.shape[0]
     species = g.species_of(batch.node_feat, cfg.n_species)
@@ -211,7 +246,7 @@ def forward(params, batch: g.GraphBatch, cfg: EqV2Config) -> torch.Tensor:
     edges = list(zip(*(a.chunk(n_chunks) for a in
                        (batch.edge_src, batch.edge_dst, unit, rbf, edge_ok))))
     for i in range(cfg.n_layers):
-        x = _layer(x, params, i, edges, cfg)
+        x = _layer(x, params, i, edges, cfg, devices)
 
     e_atom = F.silu(x[:, 0, :] @ params["head0"] + params["head0b"])
     e_atom = (e_atom @ params["head1"])[:, 0]
@@ -219,7 +254,7 @@ def forward(params, batch: g.GraphBatch, cfg: EqV2Config) -> torch.Tensor:
 
 
 def loss_fn(params, batch: g.GraphBatch, targets: torch.Tensor,
-            cfg: EqV2Config):
-    e = forward(params, batch, cfg)
+            cfg: EqV2Config, *, mesh=None):
+    e = forward(params, batch, cfg, mesh=mesh)
     loss = torch.mean((e - targets) ** 2)
     return loss, {"mse": loss}

@@ -4,7 +4,7 @@ registry, span tracing, run reports and the exchange byte formulas."""
 from repro_torch.obs.metrics import (DEPTH_EDGES, LATENCY_EDGES,  # noqa: F401
                                      SLACK_EDGES, Counter, CounterGroup,
                                      Gauge, Histogram, MetricsRegistry,
-                                     exp_edges)
+                                     default_registry, exp_edges)
 from repro_torch.obs.report import (RunReport,  # noqa: F401
                                     dense_exchange_bytes,
                                     dense_swap_bytes, exchange_section,

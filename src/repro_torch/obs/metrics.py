@@ -5,7 +5,9 @@ The engine counts what it launches and gathers in named counter families
 ``core.ipgc.GATHER_COUNTS`` (neighbour-color gathers per step) and
 ``kernels.ops.KERNEL_LAUNCHES`` (CUDA kernel launches per wrapper). The
 port runs eagerly, so every counter moves when the code runs, not when it
-is traced.
+is traced. The groups the reference registers (``ipgc.gathers``,
+``ipgc.launches``, ``dist.exchanges``) live in ``default_registry()``, the
+process-wide ``MetricsRegistry``.
 
 The stream service keeps its own instruments in a ``MetricsRegistry``: a
 ``Counter`` (monotone count), a ``Gauge`` (last value) and a fixed-bucket
@@ -255,3 +257,11 @@ class MetricsRegistry:
     def reset(self) -> None:
         for m in self._m.values():
             m.reset()
+
+
+_DEFAULT = MetricsRegistry()
+
+
+def default_registry() -> MetricsRegistry:
+    """The process-wide registry the engine's counter groups live in."""
+    return _DEFAULT

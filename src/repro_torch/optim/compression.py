@@ -9,9 +9,10 @@ next step's error feedback.
 
 The reference reduces over a mesh axis inside a ``shard_map``; here the
 replicas are a list of gradient trees, each on its device (several may
-share one), as ``core/distributed.py`` runs its shards: the single
-controller sums them. A reduction across processes waits for the NCCL
-backend (ROADMAP Queue A item 13).
+share one), as ``core/distributed.py`` and the models' mesh forms
+(``launch/mesh.py``) run their shards: the single controller sums them.
+A reduction across processes, one per card, is the multi-process NCCL
+backend of ROADMAP Queue A item 13.
 """
 from __future__ import annotations
 

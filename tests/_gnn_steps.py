@@ -38,16 +38,18 @@ def value_and_grad(loss, params: dict) -> tuple[torch.Tensor, dict]:
     return value.detach(), tree_unflatten(params, list(grads))
 
 
-def gnn_loss(arch_id: str, cfg):
+def gnn_loss(arch_id: str, cfg, mesh=None):
     """``steps.py::_gnn_loss``: GraphSAGE's cross-entropy over the nodes,
-    the MSE of the per-graph outputs against ``targets`` otherwise."""
+    the MSE of the per-graph outputs against ``targets`` otherwise.
+    ``mesh`` goes to EquiformerV2's forward (its edge shards)."""
     mod = GNN_MODS[arch_id]
+    kw = {} if mesh is None else {"mesh": mesh}
 
     def loss(params, batch, targets):
         if arch_id == "graphsage-reddit":
             logits = mod.forward_full(params, batch, cfg)
             return mcommon.cross_entropy(logits, batch.node_label)
-        pred = mod.forward(params, batch, cfg)
+        pred = mod.forward(params, batch, cfg, **kw)
         if arch_id == "egnn":
             pred = pred[0]
         return torch.mean((pred - targets) ** 2)
@@ -62,11 +64,12 @@ def _update(loss_value, grads, opt, params, opt_cfg, keep_grads: bool):
     return p, o, out
 
 
-def full_step(arch_id: str, cfg, opt_cfg, keep_grads: bool = False):
+def full_step(arch_id: str, cfg, opt_cfg, keep_grads: bool = False,
+              mesh=None):
     """``gnn_full_case``'s step: ``step(params, opt, batch, targets) ->
     (params, opt, metrics)``; ``keep_grads`` adds the gradients to the
-    metrics."""
-    loss = gnn_loss(arch_id, cfg)
+    metrics; ``mesh`` goes to ``gnn_loss``."""
+    loss = gnn_loss(arch_id, cfg, mesh)
 
     def step(params, opt, batch, targets):
         value, grads = value_and_grad(
@@ -217,6 +220,27 @@ def step_card_vs_cpu(arch: str, dev) -> dict:
     step, params, args = smoke_case(arch)
     out = {}
     for where in ("cpu", dev):
+        p = to_device(params, where)
+        out[where] = step(p, adamw_init(p), *[to_device(a, where)
+                                              for a in args])
+    return card_cpu_gaps(out[dev], out["cpu"])
+
+
+def eqv2_mesh_card_vs_cpu(dev, shards: int = 4) -> dict:
+    """``smoke_case``'s EquiformerV2 step with ``edge_shard_axes=("data",)``
+    on a (``shards``,) mesh of ``dev`` and on one of the CPU, from the same
+    params, state and batch; ``card_cpu_gaps`` of the two. Run it with
+    TF32 off."""
+    import dataclasses
+
+    from repro_torch.launch.mesh import make_mesh
+    _, params, args = smoke_case("equiformer-v2")
+    cfg = dataclasses.replace(get_arch("equiformer-v2").make_smoke(),
+                              edge_shard_axes=("data",))
+    out = {}
+    for where in ("cpu", dev):
+        step = full_step("equiformer-v2", cfg, AdamWConfig(), keep_grads=True,
+                         mesh=make_mesh((shards,), ("data",), where))
         p = to_device(params, where)
         out[where] = step(p, adamw_init(p), *[to_device(a, where)
                                               for a in args])

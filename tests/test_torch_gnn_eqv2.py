@@ -4,8 +4,9 @@ l_max 1/2/4/6, the spherical-harmonics rotation property, ``rotation_to_z``
 at both poles, EqV2 rotation invariance, in one edge chunk and in two)
 run on the port; the SO(3) functions against the reference's values and
 gradients; the smoke config against the reference (forward, loss,
-per-leaf gradients, one AdamW step, from the reference's weights); the
-mesh option's refusal.
+per-leaf gradients, one AdamW step, from the reference's weights). The
+edge-sharded form is held against the reference in
+``tests/test_torch_mesh_gnn.py``.
 
 Tolerances: the property tests at the reference tests' own (2e-5 for
 the Wigner and SH identities, 2e-6 for ``rotation_to_z``, 2e-4 for the
@@ -225,12 +226,6 @@ def test_eqv2_rotation_invariance(geo_batch, edge_chunk):
     np.testing.assert_allclose(e1.numpy(), e2.numpy(), rtol=2e-4, atol=2e-4)
 
 
-def test_eqv2_mesh_sharding_is_not_ported(geo_batch):
-    cfg = teqv2.EqV2Config(n_layers=1, channels=8, l_max=1, m_max=1,
-                           n_heads=2, n_rbf=4, edge_shard_axes=("data",))
-    params, _ = teqv2.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 13"):
-        teqv2.forward(params, geo_batch, cfg)
 
 
 def test_eqv2_uneven_chunks_are_refused(geo_batch):

@@ -17,6 +17,7 @@ import torch
 from repro.models import attention as jattn
 from repro.models import common as jcommon
 from repro.models import moe as jmoe
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import attention as tattn
 from repro_torch.models import common as tcommon
 from repro_torch.models import moe as tmoe
@@ -373,5 +374,9 @@ def test_moe_ffn_matches(cf):
                             cfg_t)
     _close(ty, jy)
     _close(taux, jaux)
-    with pytest.raises(NotImplementedError, match="Queue A item 13"):
-        tmoe.moe_ffn(torch.from_numpy(x), {}, cfg_t, mesh=object())
+    # the mesh form on a one-entry mesh is the unsharded call
+    my, maux = tmoe.moe_ffn(torch.from_numpy(x),
+                            {k: torch.from_numpy(v) for k, v in p.items()},
+                            cfg_t, mesh=make_local_mesh("cpu"),
+                            batch_axes=("data",), fsdp_axes=("data",))
+    assert torch.equal(my, ty) and torch.equal(maux, taux)
