@@ -192,9 +192,9 @@ each failing the script on any error:
    step's ms (CUDA events at the step boundaries; the median of steps
    3-20), tok/s, the model-FLOPs share, peak GiB, every loss and grad
    norm; all finite, grad norms above 0, peak under the card's memory.
-10. gnn (last): the GNN and DLRM models (no kernel of this repo runs there:
-   the reference has none), their training steps composed as the
-   reference's ``launch/steps.py`` composes them (``tests/_gnn_steps.py``).
+10. gnn: the GNN and DLRM models (no kernel of this repo runs there:
+   the reference has none), their training steps from the port of the
+   reference's ``launch/steps.py`` (``repro_torch.launch.steps``).
    ``gnn.card_vs_cpu``: one smoke step of each of the five archs on the card
    and on the CPU (fp32, TF32 off) within the CPU parity tests' tolerances,
    ``sample_blocks`` and ``RecsysPipeline.batch_at`` card = CPU bit for
@@ -209,7 +209,7 @@ each failing the script on any error:
    ``retrieval_score`` over 1M candidates and ``forward`` at 262,144 rows.
    Each logs step ms (the median of steps 3-20), its rate (graphs/s, seeds/s,
    samples/s) and peak GiB; all losses and grad norms finite, norms above 0.
-11. mesh (last): the models on meshes of ``cuda:0`` (``launch.mesh``; no
+11. mesh: the models on meshes of ``cuda:0`` (``launch.mesh``; no
    kernel of this repo runs there: the reference's models have none).
    ``mesh.card_vs_cpu``: the Qwen3, Moonshot and Minitron smoke configs
    (fp32, TF32 off) at (1, 4) and (2, 2), ``batch_axes = fsdp_axes =
@@ -227,6 +227,27 @@ each failing the script on any error:
    ``mesh.eqv2``: EquiformerV2 at its published config on the molecule
    shape, five steps unsharded and at four edge shards from one init:
    step ms and losses, the first losses equal within ``LOSS_RTOL``.
+
+12. cases (last): the step builders (``repro_torch.launch.steps``).
+   ``cases.meta``: every registry cell (42) and the LM decode shapes'
+   three other variants built abstract: model FLOPs, tokens, kind and
+   argument bytes of each, no byte allocated on the card.
+   ``cases.card_vs_cpu``: each family's case function at its smoke config
+   and a small shape (``tests/_case_check.py::CASES``) on the card and on
+   the CPU, within that file's tolerances, the coloring step exactly.
+   ``cases.run``: ``CASES_RUN`` at their published configs and registry
+   shapes (the paper-ipgc cells, DLRM's four shapes, SchNet, EGNN and
+   GraphSAGE at ``full_graph_sm``, ``molecule`` and ``minibatch_lg``,
+   EquiformerV2 at ``molecule``), one warm-up step and ``CASES_TIMED``
+   timed: step ms, rate (the case's tokens a second), the model-FLOPs
+   share over ``BF16_PEAK_FLOPS``, peak GiB; the paper-ipgc cells count
+   ``mex_window``, ``conflict`` and ``compact`` (each above 0, the kernels
+   line's ``cases_launches``) and equal the same step through the plain
+   twins. Every other cell is reckoned before anything of it is
+   allocated (its arguments, then the activations of one step measured at
+   a smaller shape and scaled: ``reckon``) and runs where that fits
+   ``CASES_FIT`` of the free memory, else is logged as ``cases.left_out``
+   with its reckoned bytes and the reason.
 
 The ``done`` line gives the seconds of each stretch of ``main``
 (``phase_seconds``).
@@ -3341,7 +3362,7 @@ def gnn_molecule_phase(card: str) -> None:
     family's loss, gradient and the default AdamW. Logs each step's ms,
     graphs/s at the median, peak GiB, every loss and grad norm, and one
     more step's profile."""
-    import _gnn_steps as gs
+    from repro_torch.launch import steps
     from repro_torch.configs import get_arch
     from repro_torch.data import pipelines as rnd
     from repro_torch.models.gnn.common import random_graph_batch
@@ -3359,11 +3380,11 @@ def gnn_molecule_phase(card: str) -> None:
                                    n_graphs=m["n_graphs"])
         targets = torch.from_numpy(rnd.normal(rnd.prng_key(1),
                                               (m["n_graphs"],))).cuda()
-        params, _ = gs.GNN_MODS[arch].init_params(cfg)
+        params, _ = steps.GNN_MODS[arch].init_params(cfg)
         opt = adamw_init(params)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        step = gs.full_step(arch, cfg, AdamWConfig())
+        step = steps.full_step(arch, cfg, AdamWConfig())
         state = [params, opt]
 
         def one(i):
@@ -3391,7 +3412,7 @@ def gnn_minibatch_phase(card: str) -> None:
     seeds drawn on the card), ``loss_sampled``, its gradient and the
     default AdamW. Logs the build seconds and peak, each step's ms,
     seeds/s, peak GiB, and one step's profile."""
-    import _gnn_steps as gs
+    from repro_torch.launch import steps
     from repro_torch.configs import get_arch
     from repro_torch.data import pipelines as rnd
     from repro_torch.models.gnn import graphsage
@@ -3405,7 +3426,7 @@ def gnn_minibatch_phase(card: str) -> None:
     gen.manual_seed(0)
     g = random_graph_batch(gen, r["n_nodes"], r["n_entries"], r["d_feat"],
                            n_classes=r["n_classes"])
-    row_ptr, col_idx = gs.csr_from_edges(g.edge_src, g.edge_dst,
+    row_ptr, col_idx = steps.csr_from_edges(g.edge_src, g.edge_dst,
                                          r["n_nodes"])
     feats, labels = g.node_feat, g.node_label
     del g
@@ -3426,7 +3447,7 @@ def gnn_minibatch_phase(card: str) -> None:
     seeds = [torch.randint(0, r["n_nodes"], (r["batch_nodes"],),
                            generator=seed_gen, device="cuda",
                            dtype=torch.int32) for _ in range(GNN_STEPS + 1)]
-    step = gs.minibatch_step("graphsage-reddit", cfg, AdamWConfig(),
+    step = steps.minibatch_step("graphsage-reddit", cfg, AdamWConfig(),
                              r["fanout"])
     state = [params, opt]
 
@@ -3458,7 +3479,7 @@ def recsys_train_phase(card: str) -> None:
     ``retrieval_cand``'s 1,000,000 candidates and one ``forward`` at
     ``serve_bulk``'s 262,144 rows (ms each, CUDA events, under
     ``inference_mode``)."""
-    import _gnn_steps as gs
+    from repro_torch.launch import steps
     from repro_torch.configs import get_arch
     from repro_torch.data.pipelines import RecsysPipeline
     from repro_torch.models import dlrm
@@ -3478,7 +3499,7 @@ def recsys_train_phase(card: str) -> None:
     torch.cuda.synchronize()
     pipeline_ms = (time.perf_counter() - t0) * 1e3 / GNN_STEPS
     opt_cfg = AdamWConfig(update_in_chunks=True)
-    step = gs.dlrm_step(cfg, opt_cfg)
+    step = steps.dlrm_step(cfg, opt_cfg)
     state = [params, opt]
 
     def one(i):
@@ -3764,6 +3785,7 @@ def mesh_eqv2_phase(card: str) -> None:
     ``LOSS_RTOL`` of the unsharded one (the same weights: only the sums'
     order differs)."""
     import _gnn_steps as gs
+    from repro_torch.launch import steps
     from repro_torch.configs import get_arch
     from repro_torch.data import pipelines as rnd
     from repro_torch.launch.mesh import make_mesh
@@ -3784,9 +3806,10 @@ def mesh_eqv2_phase(card: str) -> None:
             base, edge_shard_axes=("data",))
         mesh = None if shards is None else make_mesh((shards,), ("data",),
                                                      "cuda:0")
-        params, _ = gs.GNN_MODS["equiformer-v2"].init_params(cfg)
+        params, _ = steps.GNN_MODS["equiformer-v2"].init_params(cfg)
         state = [params, adamw_init(params)]
-        step = gs.full_step("equiformer-v2", cfg, AdamWConfig(), mesh=mesh)
+        step = steps.full_step("equiformer-v2", cfg, AdamWConfig(),
+                               mesh=mesh)
 
         def one(i):
             state[0], state[1], met = step(state[0], state[1], batch,
@@ -3825,6 +3848,305 @@ def mesh_phase(card: str, mark, lm_sums: dict) -> None:
     mark("mesh.lm_serve")
     mesh_eqv2_phase(card)
     mark("mesh.eqv2")
+
+
+# --- phase 12: the step builders' cases -----------------------------------------------
+
+#: the card's dense bf16 tensor-core peak (H100 SXM data sheet): the
+#: denominator of a case's model-FLOPs share
+BF16_PEAK_FLOPS = 989.4e12
+#: ``cases.run``: the cells run at their published config and registry
+#: shape, each one warm-up step and ``CASES_TIMED`` timed ones; every other
+#: cell (and decode variant) runs only where its reckoning fits
+CASES_RUN = (("paper-ipgc", "suite_kron"), ("paper-ipgc", "suite_europe"),
+             *(("dlrm-rm2", s) for s in ("train_batch", "serve_p99",
+                                         "serve_bulk", "retrieval_cand")),
+             *((a, s) for a in ("schnet", "egnn", "graphsage-reddit")
+               for s in ("full_graph_sm", "molecule", "minibatch_lg")),
+             ("equiformer-v2", "molecule"))
+CASES_TIMED = 3
+#: a reckoned cell runs when its bytes stay within this share of the
+#: card's free memory at the phase's start
+CASES_FIT = 0.85
+#: the reckoning's smaller shape: each kind's size divided by this (an LM
+#: at ``RECKON_LAYERS`` layers besides), the measured activations times
+#: the same factor (an LM's training and prefill times its layers over
+#: ``RECKON_LAYERS`` too: every layer's saved input and KV are kept)
+RECKON_CUT = {"train": 64, "prefill": 256, "decode": 16, "gnn_full": 64,
+              "gnn_minibatch": 64}
+RECKON_CUT_CELL = {("equiformer-v2", "ogb_products"): 16384}
+RECKON_LAYERS = 2
+#: the coloring step's kernels, which ``cases.run`` counts on the
+#: paper-ipgc cells
+IPGC_KERNELS = ("mex_window", "conflict", "compact")
+
+
+def _gib(nbytes: float) -> float:
+    return nbytes / 2**30
+
+
+def case_cells() -> list:
+    """(arch, shape, variant) of every registry cell, then the LM decode
+    shapes' other variants."""
+    from repro_torch.launch import steps
+    cells = [(a, s, "base") for a, s in steps.registry_cells()]
+    return cells + [(a, s, v) for a, s, _ in cells
+                    if s in ("decode_32k", "long_500k")
+                    for v in steps.DECODE_VARIANTS]
+
+
+def cases_meta_phase() -> None:
+    """Every cell built abstract (``build_case(..., abstract=True)``): its
+    model FLOPs, tokens, kind and argument bytes; no byte allocated on the
+    card."""
+    from repro_torch.launch import steps
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    for a, s, v in case_cells():
+        case = steps.build_case(a, s, variant=v, abstract=True)
+        log(phase="cases.meta", arch=a, shape=s, variant=v,
+            model_flops=case.meta["model_flops"],
+            tokens=case.meta["tokens"], kind=case.meta["kind"],
+            kv_bytes=case.meta.get("kv_bytes"),
+            arg_bytes=steps.arg_bytes(case),
+            n_params=steps.n_params(case), donate=list(case.donate))
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    if grown or torch.cuda.mem_get_info()[0] < free0:
+        raise AssertionError(f"cases.meta allocated {grown} bytes")
+    log(phase="cases.meta_done", cells=len(case_cells()),
+        seconds=time.perf_counter() - t0, allocated_bytes=grown)
+
+
+def cases_card_vs_cpu_phase() -> None:
+    """Each smoke case of ``tests/_case_check.py::CASES`` (every family's
+    case function at its smoke config and a small shape) on the card and
+    on the CPU from the same arguments, fp32 with TF32 off, within that
+    file's tolerances; the coloring step exactly."""
+    import _case_check as cc
+
+    dev = torch.device("cuda")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for spec in cc.CASES:
+            log(phase="cases.card_vs_cpu", case=cc.case_id(spec),
+                gaps=cc.card_vs_cpu(spec, dev), equal=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    log(phase="cases.card_vs_cpu_done", cases=len(cc.CASES),
+        tol=dict(lm=cc.LM_CPU_TOL, lm_int8=cc.LM_CPU_TOL_Q8,
+                 serve=cc.SERVE_TOL, bf16_state=cc.BF16_STATE_TOL))
+
+
+def reckon_shape(arch_id: str, shape_name: str):
+    """(arch, shape, factor, how) of the smaller shape a cell's
+    activations are measured at: the size cut by ``RECKON_CUT``, an LM at
+    ``RECKON_LAYERS`` layers, EquiformerV2's edge chunk cut with its
+    edges; ``factor`` scales the measured bytes back."""
+    from repro_torch.configs import ShapeSpec, get_arch
+    from repro_torch.launch import steps
+
+    arch = get_arch(arch_id)
+    shape = arch.shapes[shape_name]
+    cut = RECKON_CUT_CELL.get((arch_id, shape_name), RECKON_CUT[shape.kind])
+    p, cfg = dict(shape.params), arch.make_config()
+    if arch.family == "lm":
+        # the tokens cut by ``cut``: the batch first, down to the fewest
+        # rows the step takes (training: one a microbatch), then the
+        # sequence
+        b, seq = p["global_batch"], p["seq_len"]
+        least = steps._MICROBATCHES.get(arch_id, 1) \
+            if shape.kind == "train" else 1
+        p["global_batch"] = max(b // cut, least)
+        p["seq_len"] = max(seq * b // (cut * p["global_batch"]), 1)
+        factor = b * seq / (p["global_batch"] * p["seq_len"])
+        if shape.kind != "decode":
+            factor *= cfg.n_layers / RECKON_LAYERS
+        cfg = dataclasses.replace(cfg, n_layers=RECKON_LAYERS)
+    elif shape.kind == "gnn_full":
+        p["n_nodes"] = max(p["n_nodes"] // cut, 1)
+        p["n_edges"] = max(p["n_edges"] // cut, 1)
+        factor = cut
+        if arch_id == "equiformer-v2":
+            cfg = dataclasses.replace(cfg, edge_chunk=max(
+                min(cfg.edge_chunk, 262144) // cut, 1))
+    else:                                    # gnn_minibatch
+        p["batch_nodes"] = max(p["batch_nodes"] // cut, 1)
+        factor = cut
+    small = dataclasses.replace(arch, make_config=lambda: cfg)
+    return small, ShapeSpec(shape.name + "_reckon", shape.kind, p), factor, p
+
+
+def measure_step(case) -> int:
+    """Bytes one step of ``case`` takes from the card above its arguments
+    at its peak: the caching allocator's peak reserved bytes over the
+    bytes allocated before the step, so that the blocks a step frees but
+    cannot reuse for a larger tensor count, and the free parts of the
+    segments earlier phases still hold count as taken (a step at the full
+    shape cannot count on either; the case's arguments resident, the
+    cache emptied first)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()          # the blocks the arguments' draws left
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = case.fn(*case.args)
+    torch.cuda.synchronize()
+    del out
+    return torch.cuda.max_memory_reserved() - base
+
+
+def reckon(arch_id: str, shape_name: str, variant: str, budget: int
+           ) -> dict:
+    """The cell's reckoned bytes before anything of it is allocated: its
+    arguments (parameters, optimizer state, inputs; from the abstract
+    case), then, where those fit ``budget``, what one step takes above
+    them (``measure_step``) at ``reckon_shape``, scaled. ``fits`` decides
+    the run."""
+    from repro_torch.launch import steps
+
+    full = steps.build_case(arch_id, shape_name, variant=variant,
+                            abstract=True)
+    args = steps.arg_bytes(full)
+    out = dict(arg_bytes=args, budget_bytes=budget)
+    if args > budget:
+        return dict(out, fits=False, reckoned_bytes=args,
+                    reason="its arguments alone exceed the budget")
+    small, shape, factor, params = reckon_shape(arch_id, shape_name)
+    free_card()
+    case = steps.case_for(small, shape, variant=variant, device="cuda")
+    act = measure_step(case)
+    del case
+    free_card()
+    total = args + act * factor
+    return dict(out, fits=total <= budget, reckoned_bytes=int(total),
+                activation_bytes=int(act * factor), measured_at=params,
+                measured_layers=RECKON_LAYERS if small.family == "lm"
+                else None, measured_activation_bytes=act, factor=factor,
+                reason=None if total <= budget else
+                "arguments plus the scaled activations exceed the budget")
+
+
+def _finite(out) -> bool:
+    from repro_torch.launch.steps import flatten_args
+    return all(bool(torch.isfinite(t).all())
+               for _, t in flatten_args(out)
+               if isinstance(t, torch.Tensor) and t.is_floating_point())
+
+
+def run_cell(card: str, arch_id: str, shape_name: str, variant: str,
+             reckoned: "dict | None") -> dict:
+    """One cell at its published config and shape on the card: the case
+    built from seed 0, one warm-up step, ``CASES_TIMED`` steps timed by
+    CUDA events; the paper-ipgc cells count their kernels over the timed
+    steps and equal the same step through the plain twins, exactly."""
+    import _case_check as cc
+    from repro_torch.launch import steps
+
+    free_card()
+    t0 = time.perf_counter()
+    case = steps.build_case(arch_id, shape_name, variant=variant,
+                            device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    out = case.fn(*case.args)                # warm-up
+    torch.cuda.synchronize()
+    coloring = case.meta["kind"] == "coloring"
+    if coloring:
+        start_counts()
+    ms, outs = timed_steps(lambda i: case.fn(*case.args), CASES_TIMED)
+    extra = {}
+    if coloring:
+        counts = _build.KERNEL_LAUNCHES.as_dict()
+        launches = {k: counts[SOURCES[k][2]] for k in IPGC_KERNELS}
+        if not all(launches.values()):
+            raise AssertionError(f"{arch_id}/{shape_name}: a kernel never "
+                                 f"launched: {launches}")
+        with cc.plain_kernels():
+            plain = case.fn(*case.args)
+        if not all(cc.coloring_equal(o, plain) for o in [out] + outs):
+            raise AssertionError(f"{arch_id}/{shape_name}: the kernels' "
+                                 "step differs from the plain twins'")
+        _cells_launches.update({k: _cells_launches.get(k, 0) + v
+                                for k, v in launches.items()})
+        extra = dict(launches=launches, plain_equal=True,
+                     colored=int((outs[-1][0][:-1] >= 0).sum()),
+                     worklist=int(outs[-1][2].count))
+        del plain
+    if not all(_finite(o) for o in outs):
+        raise AssertionError(f"{arch_id}/{shape_name}: a value is not "
+                             "finite")
+    mean = float(np.mean(ms))
+    row = dict(phase="cases.run", card=card, arch=arch_id, shape=shape_name,
+               variant=variant, kind=case.meta["kind"], build_s=build_s,
+               step_ms=ms, step_ms_mean=mean,
+               rate_per_s=case.meta["tokens"] / (mean / 1e3),
+               tokens=case.meta["tokens"],
+               model_flops=case.meta["model_flops"],
+               mfu=case.meta["model_flops"] / (mean / 1e3 * BF16_PEAK_FLOPS),
+               peak_flops=BF16_PEAK_FLOPS, arg_gib=_gib(steps.arg_bytes(case)),
+               peak_gib=_gib(torch.cuda.max_memory_allocated()),
+               peak_reserved_gib=_gib(torch.cuda.max_memory_reserved()),
+               reckoned_gib=None if reckoned is None
+               else _gib(reckoned["reckoned_bytes"]), finite=True, **extra)
+    log(**row)
+    del case, out, outs
+    free_card()
+    return row
+
+
+#: the launches of the coloring step's kernels over ``cases.run``'s timed
+#: steps, for the kernels line
+_cells_launches: dict = {}
+
+
+def cases_run_phase(card: str) -> None:
+    """``CASES_RUN`` at their published configs and shapes, then every
+    other cell reckoned (``reckon``) against ``CASES_FIT`` of the free
+    memory: run where it fits, else logged with its reckoned bytes and
+    the reason (``cases.left_out``). No out-of-memory error is caught."""
+    free_card()
+    budget = int(torch.cuda.mem_get_info()[0] * CASES_FIT)
+    fixed = {(a, s) for a, s in CASES_RUN}
+    for a, s in CASES_RUN:
+        run_cell(card, a, s, "base", None)
+    left = 0
+    for a, s, v in case_cells():
+        if (a, s) in fixed:
+            continue
+        r = reckon(a, s, v, budget)
+        if r["fits"]:
+            log(phase="cases.admitted", arch=a, shape=s, variant=v,
+                arg_gib=_gib(r["arg_bytes"]),
+                reckoned_gib=_gib(r["reckoned_bytes"]),
+                budget_gib=_gib(budget), measured_at=r["measured_at"],
+                factor=r["factor"])
+            run_cell(card, a, s, v, r)
+        else:
+            left += 1
+            log(phase="cases.left_out", arch=a, shape=s, variant=v,
+                arg_gib=_gib(r["arg_bytes"]),
+                reckoned_gib=_gib(r["reckoned_bytes"]),
+                budget_gib=_gib(budget), **{
+                    k: r[k] for k in ("activation_bytes", "measured_at",
+                                      "measured_layers",
+                                      "measured_activation_bytes", "factor")
+                    if k in r}, reason=r["reason"])
+    log(phase="cases.run_done", run=len(case_cells()) - left, left_out=left,
+        budget_gib=_gib(budget), fit_share=CASES_FIT)
+
+
+def cases_phase(card: str, mark) -> None:
+    """Phase 12: the step builders' cases (``launch/steps.py``)."""
+    cases_meta_phase()
+    mark("cases.meta")
+    cases_card_vs_cpu_phase()
+    mark("cases.card_vs_cpu")
+    cases_run_phase(card)
+    mark("cases.run")
 
 
 def host_peak_gib() -> float:
@@ -3929,12 +4251,14 @@ def main() -> int:
     mark("train.full")
     gnn_phase(card, mark)
     mesh_phase(card, mark, lm_sums)
+    cases_phase(card, mark)
     tune_dir.cleanup()
     for name, row in rows.items():
         row["launches"] = totals[SOURCES[name][2]]
         row["batch_launches"] = batch[SOURCES[name][2]]
         row["lane_rows_checked"] = [r for k, r in LANE_CHECKS if k == name]
         row["tile_ms"] = TILE_MS.get(name)
+        row["cases_launches"] = _cells_launches.get(name, 0)
         row["outlined_launches"] = sum(
             o["launches"][SOURCES[name][2]] for by in outlined.values()
             for o in by.values())

@@ -41,16 +41,17 @@ from repro_torch.optim.compression import compress_init, compressed_psum
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
-def value_and_grad(params: dict, batch: dict, cfg: tfm.LMConfig
+def value_and_grad(params: dict, batch: dict, cfg: tfm.LMConfig, **kw
                    ) -> tuple[torch.Tensor, dict, dict]:
     """(loss, loss_fn's metrics, gradients in ``params``' tree), all
-    detached. Marks the float leaves of ``params`` as requiring grad."""
+    detached. Marks the float leaves of ``params`` as requiring grad.
+    ``kw`` goes to ``loss_fn`` (``mesh``, ``batch_axes``, ``fsdp_axes``)."""
     leaves = tree_leaves(params)
     for p in leaves:
         if not p.requires_grad:
             p.requires_grad_(True)
     with torch.enable_grad():
-        loss, metrics = tfm.loss_fn(params, batch, cfg)
+        loss, metrics = tfm.loss_fn(params, batch, cfg, **kw)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \

@@ -191,7 +191,13 @@ def _layer(x, p, i, edges, cfg: EqV2Config, devices=None):
             num_p, den_p = _edge_messages(h_d, q_d, p_d, i, part, cfg, n)
             num = num + num_p.to(x.device)
             den = den + den_p.to(x.device)
-    agg = num / torch.clamp(den, min=1e-9)[:, None, :]
+    # a node no valid edge reaches has den = num = 0 and agg = 0, as in
+    # the reference; the where keeps the 1e-9 floor's 1e9 out of its
+    # gradient, which an edge masked out (a self loop) into such a node
+    # would carry back as inf * 0 = nan
+    reached = (den > 0)[:, None, :]
+    agg = torch.where(reached, num / torch.clamp(den, min=1e-9)[:, None, :],
+                      0.0)
     x = x + agg @ p[f"proj_{i}"]
 
     h2 = _eq_norm(x, p[f"ffn_norm_{i}"], cfg.l_max)

@@ -1,9 +1,10 @@
-"""Training steps of the GNN and DLRM families, composed from the port's
-modules as the reference's ``launch/steps.py`` composes its own
-(``gnn_full_case``, ``gnn_minibatch_case``, ``dlrm_case``): the value and
-gradient of the family's loss, then ``optim.adamw.adamw_update``. Shared
-by the CPU parity tests, ``tests/test_torch_cuda.py`` and
-``chip_smoke.py``; imports torch and numpy only.
+"""The GNN and DLRM training steps for the tests and ``chip_smoke.py``:
+``full_step``, ``minibatch_step``, ``dlrm_step``, ``gnn_loss``,
+``GNN_MODS``, ``value_and_grad`` and ``csr_from_edges`` live in
+``repro_torch.launch.steps`` (the port of the reference's
+``launch/steps.py``) and are re-exported here under their old names; this
+file keeps the card-vs-CPU tolerances and checks. Imports torch and numpy
+only.
 """
 from __future__ import annotations
 
@@ -13,105 +14,13 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.data.pipelines import RecsysPipeline, prng_key
 from repro_torch.graphs.sampler import blocks_to_graphbatch, sample_blocks
-from repro_torch.models import common as mcommon
+from repro_torch.launch.steps import (GNN_MODS, csr_from_edges,  # noqa: F401
+                                      dlrm_step, full_step, gnn_loss,
+                                      minibatch_step, value_and_grad)
 from repro_torch.models import dlrm
-from repro_torch.models.gnn import egnn, equiformer_v2, graphsage, schnet
+from repro_torch.models.gnn import graphsage
 from repro_torch.models.gnn.common import GraphBatch, random_graph_batch
-from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
-from repro_torch.tree import tree_leaves, tree_unflatten
-
-GNN_MODS = {"equiformer-v2": equiformer_v2, "egnn": egnn, "schnet": schnet,
-            "graphsage-reddit": graphsage}
-
-
-def value_and_grad(loss, params: dict) -> tuple[torch.Tensor, dict]:
-    """(loss(params), its gradient in ``params``' tree), detached. Marks
-    the leaves of ``params`` as requiring grad."""
-    leaves = tree_leaves(params)
-    for p in leaves:
-        if not p.requires_grad:
-            p.requires_grad_(True)
-    with torch.enable_grad():
-        value = loss(params)
-        grads = torch.autograd.grad(value, leaves, allow_unused=True,
-                                    materialize_grads=True)
-    return value.detach(), tree_unflatten(params, list(grads))
-
-
-def gnn_loss(arch_id: str, cfg, mesh=None):
-    """``steps.py::_gnn_loss``: GraphSAGE's cross-entropy over the nodes,
-    the MSE of the per-graph outputs against ``targets`` otherwise.
-    ``mesh`` goes to EquiformerV2's forward (its edge shards)."""
-    mod = GNN_MODS[arch_id]
-    kw = {} if mesh is None else {"mesh": mesh}
-
-    def loss(params, batch, targets):
-        if arch_id == "graphsage-reddit":
-            logits = mod.forward_full(params, batch, cfg)
-            return mcommon.cross_entropy(logits, batch.node_label)
-        pred = mod.forward(params, batch, cfg, **kw)
-        if arch_id == "egnn":
-            pred = pred[0]
-        return torch.mean((pred - targets) ** 2)
-    return loss
-
-
-def _update(loss_value, grads, opt, params, opt_cfg, keep_grads: bool):
-    p, o, om = adamw_update(grads, opt, params, opt_cfg)
-    out = {"loss": loss_value, **om}
-    if keep_grads:
-        out["grads"] = grads
-    return p, o, out
-
-
-def full_step(arch_id: str, cfg, opt_cfg, keep_grads: bool = False,
-              mesh=None):
-    """``gnn_full_case``'s step: ``step(params, opt, batch, targets) ->
-    (params, opt, metrics)``; ``keep_grads`` adds the gradients to the
-    metrics; ``mesh`` goes to ``gnn_loss``."""
-    loss = gnn_loss(arch_id, cfg, mesh)
-
-    def step(params, opt, batch, targets):
-        value, grads = value_and_grad(
-            lambda p: loss(p, batch, targets), params)
-        return _update(value, grads, opt, params, opt_cfg, keep_grads)
-    return step
-
-
-def minibatch_step(arch_id: str, cfg, opt_cfg, fanouts: tuple,
-                   keep_grads: bool = False):
-    """``gnn_minibatch_case``'s step, the blocks sampled inside it:
-    ``step(params, opt, feats, coords, labels, row_ptr, col_idx, seeds,
-    rng) -> (params, opt, metrics)``; ``rng`` a threefry key."""
-    mod = GNN_MODS[arch_id]
-
-    def step(params, opt, feats, coords, labels, row_ptr, col_idx, seeds,
-             rng):
-        blocks = sample_blocks(rng, row_ptr, col_idx, seeds, fanouts)
-
-        def loss(p):
-            if arch_id == "graphsage-reddit":
-                logits = graphsage.forward_sampled(p, feats, blocks, cfg)
-                return mcommon.cross_entropy(logits, labels[seeds])
-            batch = blocks_to_graphbatch(blocks, feats, coords, labels)
-            pred = mod.forward(p, batch, cfg)
-            if arch_id == "egnn":
-                pred = pred[0]
-            return torch.mean(pred ** 2)
-
-        value, grads = value_and_grad(loss, params)
-        return _update(value, grads, opt, params, opt_cfg, keep_grads)
-    return step
-
-
-def dlrm_step(cfg, opt_cfg, keep_grads: bool = False):
-    """``dlrm_case``'s ``rs_train`` step: ``step(params, opt, batch) ->
-    (params, opt, metrics)``."""
-    def step(params, opt, batch):
-        value, grads = value_and_grad(
-            lambda p: dlrm.loss_fn(p, batch, cfg)[0], params)
-        return _update(value, grads, opt, params, opt_cfg, keep_grads)
-    return step
+from repro_torch.optim.adamw import AdamWConfig, adamw_init
 
 
 #: card = CPU for one step (fp32, TF32 off), the CPU parity tests'
@@ -158,19 +67,6 @@ def card_cpu_gaps(card: tuple, cpu: tuple) -> dict:
         if not gap <= PARAM_TOL:
             raise AssertionError(f"param {name}: {gap}")
     return gaps
-
-
-def csr_from_edges(src: torch.Tensor, dst: torch.Tensor, n_nodes: int
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(row_ptr int32 (N + 1,), col_idx int32 (E,)) of the directed
-    entries src -> dst, on their device: a stable sort by source."""
-    order = torch.sort(src, stable=True).indices
-    col_idx = dst[order]
-    del order
-    counts = torch.bincount(src, minlength=n_nodes)
-    row_ptr = torch.zeros(n_nodes + 1, dtype=torch.int32, device=src.device)
-    row_ptr[1:] = torch.cumsum(counts, 0)
-    return row_ptr, col_idx
 
 
 # --- card = CPU ---------------------------------------------------------------

@@ -33,9 +33,11 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def step_gaps(card: tuple, cpu: tuple, *, wd: float,
-              compressed: bool = False) -> dict:
+              compressed: bool = False, state_rel: float = REL) -> dict:
     """``card`` and ``cpu`` are each (params, opt, metrics) after the step.
-    Returns the gaps and raises AssertionError past a tolerance."""
+    Returns the gaps and raises AssertionError past a tolerance.
+    ``state_rel`` takes the place of ``REL`` for m and v (bf16 state can
+    round an entry to its neighbouring bf16 value)."""
     (cp, co, cm), (wp, wo, wm) = card, cpu
     q = QUANTUM if compressed else 0.0
     gaps = {"loss": _rel(cm["loss"].cpu(), wm["loss"]),
@@ -43,7 +45,7 @@ def step_gaps(card: tuple, cpu: tuple, *, wd: float,
             "m": 0.0, "v": 0.0, "params": 0.0, "flipped": 0,
             "flip_lr": 0.0}
     lr = float(wm["lr"])
-    for name, tol in (("m", REL + q), ("v", REL + 2 * q)):
+    for name, tol in (("m", state_rel + q), ("v", state_rel + 2 * q)):
         for a, b in zip(tree_leaves(getattr(co, name)),
                         tree_leaves(getattr(wo, name))):
             g = _rel(a.cpu(), b)
@@ -55,7 +57,7 @@ def step_gaps(card: tuple, cpu: tuple, *, wd: float,
         b = b.detach().float()
         gap = (a - b).abs()
         scale = max(1.0, float(b.abs().max()))
-        noise = m.abs() <= (REL + q) * float(m.abs().max())
+        noise = m.abs() <= (state_rel + q) * float(m.abs().max())
         near = gap[~noise]
         if near.numel():
             gaps["params"] = max(gaps["params"], float(near.max()) / scale)

@@ -6,7 +6,9 @@ service, trips keyed by tile) and BFS on the card against the same runs
 on the CPU; the LM serving path's default device; the LM training path
 (a step card = CPU, an exact resume under deterministic algorithms, the
 default device); the GNN and DLRM models (a smoke step of each family, the
-sampler and ``RecsysPipeline`` card = CPU, the default device).
+sampler and ``RecsysPipeline`` card = CPU, the default device); the step
+builders' cases (``launch/steps.py``: each family's case at smoke size
+card = CPU, the coloring case's kernels, the default device).
 Needs a
 CUDA device and nvcc; skips without a device. Imports no JAX, so it runs
 where only PyTorch is installed:
@@ -30,6 +32,7 @@ from repro_torch.kernels.fused_step import fused_step_rows_plain
 from repro_torch.kernels.jpl_prio import Hash, Table, jpl_extrema_rows_plain
 from repro_torch.kernels.mex_window import mex_window_rows_plain
 
+import _case_check
 from _gather_cases import gather_case, jpl_prio_table
 
 # the test workers share the machine's cores: no intra-op thread pool
@@ -952,3 +955,44 @@ def test_card_gnn_defaults_to_the_card():
     p, _ = dlrm.init_params(get_arch("dlrm-rm2").make_smoke())
     assert p["tables"].is_cuda
     assert RecsysPipeline(3, 2, 10, 4).batch_at(0)["sparse"].is_cuda
+
+
+# --- the step builders' cases (launch/steps.py) -------------------------------
+
+@pytest.mark.parametrize("spec", _case_check.CASES,
+                         ids=[_case_check.case_id(c)
+                              for c in _case_check.CASES])
+def test_card_case_equals_cpu(dev, spec):
+    """Each family's case function at smoke size on the card = the CPU
+    (``tests/_case_check.py``'s tolerances; the coloring step exactly)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _case_check.card_vs_cpu(spec, dev)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def test_card_ipgc_case_runs_the_kernels(dev):
+    """``ipgc_case``'s step drawn on the card launches ``mex_window``,
+    ``conflict`` and ``compact``, and equals the same step through their
+    plain twins there."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import steps
+    shape = ShapeSpec("s", "coloring", dict(n_nodes=65536, ell_width=32))
+    case = steps.case_for(steps.smoke_arch("paper-ipgc"), shape)
+    assert case.args[0].ell_idx.device.type == "cuda"
+    _build.KERNEL_LAUNCHES.reset()
+    got = case.fn(*case.args)
+    counts = _build.KERNEL_LAUNCHES.as_dict()
+    assert all(counts[k] > 0 for k in ("mex_window", "conflict", "compact"))
+    with _case_check.plain_kernels():
+        want = case.fn(*case.args)
+    assert _case_check.coloring_equal(got, want)
+
+
+def test_card_cases_default_to_the_card(dev):
+    from repro_torch.launch import steps
+    case = steps.build_case("dlrm-rm2", "serve_p99")
+    assert case.args[1].device.type == "cuda"
+    assert case.fn(*case.args).shape == (512,)

@@ -186,12 +186,12 @@ def test_dlrm_step_frees_its_gradients():
 
     gc.disable()
     try:
-        import _gnn_steps
-        _gnn_steps.tree_unflatten = spy
+        from repro_torch.launch import steps
+        steps.tree_unflatten = spy
         try:
             dlrm_step(cfg, AdamWConfig())(params, adamw_init(params), b)
         finally:
-            _gnn_steps.tree_unflatten = real
+            steps.tree_unflatten = real
         assert seen and all(r() is None for r in seen)
     finally:
         gc.enable()
