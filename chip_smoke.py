@@ -249,6 +249,24 @@ each failing the script on any error:
    ``CASES_FIT`` of the free memory, else is logged as ``cases.left_out``
    with its reckoned bytes and the reason.
 
+13. dryrun (last): the dry run (``repro_torch.launch.dryrun``, its op
+   counter ``opcost`` and ``roofline``). Its CLI runs in a process of its
+   own from the end of phase 1 (``DryrunProcess``: every case's one-card
+   record and every cell's production single-mesh record, on the
+   ``meta`` device, the card hidden from it); phase 12's
+   ``cases.left_out`` lines carry its one-card peak, and a failed record
+   there fails the phase. ``dryrun.card``:
+   each cell ``cases.run`` ran, its meta record (none for the paper-ipgc
+   cells, which need values) against one step counted on the card after
+   a warm-up: FLOPs and bytes equal within ``DRYRUN_EQ``, the meta peak
+   beside the card's allocated and reserved peaks of that step, the
+   one-card roofline bound over ``cases.run``'s step ms at most
+   ``DRYRUN_SHARE_MAX`` (FLOPs at their type's peak). ``dryrun.mesh``:
+   each single-mesh record with its roofline row (the paper-ipgc cells'
+   from their card count); the process's summary must count no failed
+   record beyond the unsplittable ones and the four paper-ipgc records
+   it cannot count without the card.
+
 The ``done`` line gives the seconds of each stretch of ``main``
 (``phase_seconds``).
 
@@ -4093,6 +4111,7 @@ def run_cell(card: str, arch_id: str, shape_name: str, variant: str,
                reckoned_gib=None if reckoned is None
                else _gib(reckoned["reckoned_bytes"]), finite=True, **extra)
     log(**row)
+    _cells_run.append(row)
     del case, out, outs
     free_card()
     return row
@@ -4101,13 +4120,16 @@ def run_cell(card: str, arch_id: str, shape_name: str, variant: str,
 #: the launches of the coloring step's kernels over ``cases.run``'s timed
 #: steps, for the kernels line
 _cells_launches: dict = {}
+#: ``cases.run``'s rows, the cells phase 13 holds the dry run to
+_cells_run: list = []
 
 
-def cases_run_phase(card: str) -> None:
+def cases_run_phase(card: str, dry: "DryrunProcess") -> None:
     """``CASES_RUN`` at their published configs and shapes, then every
     other cell reckoned (``reckon``) against ``CASES_FIT`` of the free
-    memory: run where it fits, else logged with its reckoned bytes and
-    the reason (``cases.left_out``). No out-of-memory error is caught."""
+    memory: run where it fits, else logged with its reckoned bytes, the
+    dry run's one-card peak (``dry``'s record) and the reason
+    (``cases.left_out``). No out-of-memory error is caught."""
     free_card()
     budget = int(torch.cuda.mem_get_info()[0] * CASES_FIT)
     fixed = {(a, s) for a, s in CASES_RUN}
@@ -4127,9 +4149,16 @@ def cases_run_phase(card: str) -> None:
             run_cell(card, a, s, v, r)
         else:
             left += 1
+            rec = dry.record(a, s, "card", v)
+            if not rec["ok"] and a != "paper-ipgc":
+                raise AssertionError(f"{a}/{s}/{v}: the dry run's one-card "
+                                     f"record failed: {rec['error']}")
             log(phase="cases.left_out", arch=a, shape=s, variant=v,
                 arg_gib=_gib(r["arg_bytes"]),
                 reckoned_gib=_gib(r["reckoned_bytes"]),
+                dryrun_peak_gib=_gib(rec["memory"]["peak_bytes"])
+                if rec["ok"] else None,
+                dryrun_error=None if rec["ok"] else rec["error"][-300:],
                 budget_gib=_gib(budget), **{
                     k: r[k] for k in ("activation_bytes", "measured_at",
                                       "measured_layers",
@@ -4139,14 +4168,233 @@ def cases_run_phase(card: str) -> None:
         budget_gib=_gib(budget), fit_share=CASES_FIT)
 
 
-def cases_phase(card: str, mark) -> None:
+def cases_phase(card: str, mark, dry: "DryrunProcess") -> None:
     """Phase 12: the step builders' cases (``launch/steps.py``)."""
     cases_meta_phase()
     mark("cases.meta")
     cases_card_vs_cpu_phase()
     mark("cases.card_vs_cpu")
-    cases_run_phase(card)
+    cases_run_phase(card, dry)
     mark("cases.run")
+
+
+# --- phase 13: the dry run against the card ------------------------------------
+
+#: the meta count against the card's count of one step, relative: sums of
+#: the same integers (the depth and chunk rules' extension is exact in
+#: float64 below 2**53)
+DRYRUN_EQ = 1e-9
+#: a roofline bound above the measured step by more than this means the
+#: count is wrong
+DRYRUN_SHARE_MAX = 1.05
+#: the seconds phase 13 may wait for the dry run's process (it starts
+#: after phase 1 and takes ~10 minutes beside phases 2-12)
+DRYRUN_WAIT_S = 120.0
+
+
+class DryrunProcess:
+    """The dry run's CLI (``python -m repro_torch.launch.dryrun --all
+    --variant all --mesh card,single``) in a process of its own, started
+    after phase 1: every case's one-card record and every cell's
+    production single-mesh record, counted on the ``meta`` device on one
+    of the host's cores beside phases 2-12 (its card is hidden from it;
+    the paper-ipgc cells, which need values, phase 13 counts on the
+    card). ``record`` waits for a record; ``stop`` ends the process."""
+
+    def __init__(self):
+        self.dir = tempfile.TemporaryDirectory()
+        self.out = open(os.path.join(self.dir.name, "dryrun.log"), "w+")
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   PYTHONPATH=os.path.join(ROOT, "src"))
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--variant", "all", "--mesh", "card,single", "--outdir",
+             self.dir.name], stdout=self.out, stderr=subprocess.STDOUT,
+            env=env, cwd=ROOT)
+
+    def record(self, arch: str, shape: str, mesh: str, variant: str,
+               wait: float = DRYRUN_WAIT_S) -> dict:
+        suffix = "" if variant == "base" else f"__{variant}"
+        path = os.path.join(self.dir.name,
+                            f"{arch}__{shape}__{mesh}{suffix}.json")
+        deadline = time.perf_counter() + wait
+        while not os.path.exists(path):
+            if self.proc.poll() is not None or time.perf_counter() > deadline:
+                raise AssertionError(f"the dry run wrote no {path} (rc "
+                                     f"{self.proc.poll()}): "
+                                     f"{self.tail()}")
+            time.sleep(0.5)
+        for _ in range(20):                   # written whole, then read
+            try:
+                with open(path) as f:
+                    return json.load(f)
+            except json.JSONDecodeError:
+                time.sleep(0.25)
+        raise AssertionError(f"{path} does not parse")
+
+    def tail(self, n: int = 2000) -> str:
+        self.out.flush()
+        self.out.seek(0)
+        return self.out.read()[-n:]
+
+    def finish(self) -> dict:
+        """Wait for the process; its summary line and seconds."""
+        rc = self.proc.wait(timeout=DRYRUN_WAIT_S)
+        done = [ln for ln in self.tail(100000).splitlines()
+                if ln.startswith("done:")]
+        return dict(rc=rc, summary=done[-1] if done else None,
+                    seconds=time.perf_counter() - self.t0)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.out.close()
+        self.dir.cleanup()
+
+
+def _same(a: float, b: float) -> bool:
+    return abs(a - b) <= DRYRUN_EQ * max(abs(a), abs(b), 1.0)
+
+
+def dryrun_card_phase(card: str, dry: DryrunProcess) -> dict:
+    """Each cell ``cases.run`` ran: its one-card dry-run record (counted
+    on ``meta`` with the depth and chunk rules; the paper-ipgc cells need
+    values: none) against one step counted on the card
+    (``launch.dryrun.count_case``, after a warm-up step), FLOPs and bytes
+    equal; the meta peak beside the card's allocated peak of that step
+    (its arguments plus what the step allocated above them) and its
+    reserved peak; the one-card roofline bound (``launch/roofline.py``'s
+    terms, FLOPs priced by their type, no collective) over ``cases.run``'s
+    step ms, at most ``DRYRUN_SHARE_MAX``. Returns the paper-ipgc cells'
+    card counts."""
+    from repro_torch.launch import dryrun, roofline, steps
+    from repro_torch.launch.mesh import HBM_BW
+
+    paper = {}
+    for row in _cells_run:
+        a, s, v = row["arch"], row["shape"], row["variant"]
+        rec = dry.record(a, s, "card", v)
+        if not rec["ok"] and a != "paper-ipgc":
+            raise AssertionError(f"{a}/{s}/{v}: the dry run failed: "
+                                 f"{rec['error']}")
+        meta = rec if rec["ok"] else None
+        free_card()
+        case = steps.build_case(a, s, variant=v, device="cuda")
+        out = case.fn(*case.args)                 # warm-up
+        del out
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        got = dryrun.count_case(case)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t1
+        args = steps.arg_bytes(case)
+        alloc_max = torch.cuda.max_memory_allocated()
+        reserved_max = torch.cuda.max_memory_reserved()
+        step_peak = args + alloc_max - base
+        if a == "paper-ipgc":
+            paper[s] = dict(got, meta=case.meta)
+        del case
+        free_card()
+        t_comp = roofline.compute_seconds(got["flops_by_dtype"])
+        bound_ms = max(t_comp, got["bytes"] / HBM_BW) * 1e3
+        share = bound_ms / row["step_ms_mean"]
+        if meta is not None and not (
+                _same(meta["cost"]["flops"], got["flops"])
+                and _same(meta["cost"]["bytes"], got["bytes"])):
+            raise AssertionError(f"{a}/{s}/{v}: meta counts {meta['cost']}; "
+                                 f"the card {got['flops']} FLOPs, "
+                                 f"{got['bytes']} bytes")
+        if share > DRYRUN_SHARE_MAX:
+            raise AssertionError(f"{a}/{s}/{v}: the roofline bound "
+                                 f"{bound_ms} ms is {share:.3f} of the "
+                                 f"measured {row['step_ms_mean']} ms")
+        meta_peak = None if meta is None else meta["memory"]["peak_bytes"]
+        log(phase="dryrun.card", card=card, arch=a, shape=s, variant=v,
+            meta_flops=None if meta is None else meta["cost"]["flops"],
+            card_flops=got["flops"],
+            meta_bytes=None if meta is None else meta["cost"]["bytes"],
+            card_bytes=got["bytes"], equal=meta is not None,
+            meta_peak_gib=None if meta is None else _gib(meta_peak),
+            card_count_peak_gib=_gib(got["peak_bytes"]),
+            card_alloc_peak_gib=_gib(step_peak),
+            card_alloc_max_gib=_gib(alloc_max),
+            card_reserved_peak_gib=_gib(reserved_max),
+            peak_ratio=None if meta is None else meta_peak / step_peak,
+            arg_gib=_gib(args), bound_ms=bound_ms,
+            bound_by="operations" if t_comp >= got["bytes"] / HBM_BW
+            else "bytes", flops_by_dtype=got["flops_by_dtype"],
+            step_ms=row["step_ms_mean"], share=share,
+            kernels=got["kernels"], n_ops=got["n_ops"],
+            depths_counted=None if meta is None else meta["depths_counted"],
+            meta_s=None if meta is None else meta["total_s"], card_s=card_s)
+    return paper
+
+
+def dryrun_mesh_phase(card: str, dry: DryrunProcess, paper: dict) -> None:
+    """Every cell's production single-mesh record (256 entries on the
+    ``meta`` device; the paper-ipgc cells' the card's one-card count, the
+    coloring step being unsharded) with its roofline row, one
+    ``dryrun.mesh`` line a record. A record that failed other than on a
+    batch its data shards do not divide fails the phase, and so does a
+    dry run whose failed records are more than those and the paper-ipgc
+    records it cannot count without the card (the cells' one-card records
+    were each held in phase 12 or above)."""
+    from repro_torch.launch import dryrun, roofline, steps
+
+    failed = 0
+    n_paper = 0
+    for a, s, v in dryrun.cell_variants(steps.registry_cells(), "all"):
+        rec = dry.record(a, s, "h100_32x8", v)
+        if a == "paper-ipgc":
+            n_paper += 2                      # its card and mesh records
+            got = paper.get(s)
+            if got is None:
+                continue
+            rec.update(ok=True, meta=got["meta"], mesh_form=False,
+                       cost={"flops": got["flops"], "bytes": got["bytes"],
+                             "flops_by_dtype": got["flops_by_dtype"]},
+                       memory={"peak_bytes": got["peak_bytes"]},
+                       collectives=got["collectives"], counted_on="cuda")
+            rec.pop("error", None)
+        if not rec["ok"]:
+            failed += 1
+            if "does not split" not in rec["error"]:
+                raise AssertionError(f"{a}/{s}/{v} on the single mesh: "
+                                     f"{rec['error']}")
+        r = roofline.roofline_row(rec)
+        log(phase="dryrun.mesh", card=card, arch=a, shape=s, variant=v,
+            mesh=rec["mesh"], ok=rec["ok"], seconds=rec["total_s"],
+            **({k: rec.get(k) for k in (
+                "cost", "memory", "collectives", "counted_on",
+                "counted_mesh", "depths_counted", "chunks_counted",
+                "mesh_form", "arg_shard_bytes")}
+               if rec["ok"] else {"error": rec["error"][-400:]}),
+            **({k: r[k] for k in ("t_compute", "t_memory", "t_collective",
+                                  "bound", "t_bound", "useful_ratio",
+                                  "roofline_frac")} if rec["ok"] else {}))
+    done = dry.finish()
+    log(phase="dryrun.mesh_done", failed=failed, **done)
+    want = failed + n_paper
+    if done["summary"] is None or not done["summary"].startswith("done:") \
+            or int(done["summary"].split(",")[1].split()[0]) != want \
+            or done["rc"] != (1 if want else 0):
+        raise AssertionError(f"the dry run's summary {done['summary']!r} "
+                             f"(rc {done['rc']}): {want} failed records "
+                             f"expected ({failed} unsplittable, {n_paper} "
+                             "paper-ipgc)")
+
+
+def dryrun_phase(card: str, mark, dry: DryrunProcess) -> None:
+    """Phase 13: the dry run (``launch/dryrun.py``, ``opcost.py``,
+    ``roofline.py``) against the card."""
+    paper = dryrun_card_phase(card, dry)
+    mark("dryrun.card")
+    dryrun_mesh_phase(card, dry, paper)
+    mark("dryrun.mesh")
 
 
 def host_peak_gib() -> float:
@@ -4169,6 +4417,17 @@ def main() -> int:
 
     card = device_phase()
     mark("device")
+    dry = DryrunProcess()
+    try:
+        return run_phases(card, mark, marks, t_start, dry)
+    finally:
+        dry.stop()
+
+
+def run_phases(card: str, mark, marks: list, t_start: float,
+               dry: DryrunProcess) -> int:
+    """Phases 2-13, after ``device_phase`` and with the dry run's process
+    running."""
     dev = torch.device("cuda")
     tune_dir = tempfile.TemporaryDirectory()
     tune_sweep_phase(os.path.join(tune_dir.name, "tune.json"))
@@ -4251,7 +4510,8 @@ def main() -> int:
     mark("train.full")
     gnn_phase(card, mark)
     mesh_phase(card, mark, lm_sums)
-    cases_phase(card, mark)
+    cases_phase(card, mark, dry)
+    dryrun_phase(card, mark, dry)
     tune_dir.cleanup()
     for name, row in rows.items():
         row["launches"] = totals[SOURCES[name][2]]

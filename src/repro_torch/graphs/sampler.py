@@ -33,6 +33,8 @@ def _words(key: np.ndarray, shape: tuple, dev: torch.device):
                                    for k in rnd.split(key)]).astype(np.int64))
     if dev.type == "cuda":
         w = w.pin_memory().to(dev, non_blocking=True)
+    elif dev.type != "cpu":
+        w = w.to(dev)                   # ``meta``: the shapes only
     return w[0], w[1]
 
 

@@ -12,6 +12,11 @@ the rows one thread block owns (``csrc/rows.cuh``), None for the default
 block. It is a pure performance knob: every value gives the same result,
 and the plain versions ignore it. ``compact`` keeps its own tile and
 ``frontier_probe`` its fixed block, as the reference's ``ops`` does.
+
+Each call goes through ``obs.opcost_hooks.kernel_call``, which does
+nothing but call it unless an op counter runs (``launch/opcost.py``);
+then the call counts as one op of its operands' and outputs' bytes (the
+extension call is no ATen op the counter could see).
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from repro_torch.kernels.jpl_prio import (jpl_extrema_cuda,
                                           jpl_extrema_rows_plain)
 from repro_torch.kernels.mex_window import (mex_window_cuda,
                                             mex_window_rows_plain)
+from repro_torch.obs.opcost_hooks import kernel_call
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -58,8 +64,8 @@ def mex_window(colors: torch.Tensor, ell_idx: torch.Tensor,
     """
     args = (colors, ell_idx, rows, base, active, hub_forb, hub_slot, window)
     if _on_cuda(colors):
-        return mex_window_cuda(*args, tile_rows)
-    return mex_window_rows_plain(*args)
+        return kernel_call("mex_window", mex_window_cuda, *args, tile_rows)
+    return kernel_call("mex_window", mex_window_rows_plain, *args)
 
 
 def conflict(colors: torch.Tensor, priority: torch.Tensor,
@@ -75,11 +81,10 @@ def conflict(colors: torch.Tensor, priority: torch.Tensor,
     or None for all Rg rows; cu, pu, ids int32[R]; newly bool[R]. The
     neighbours are gathered inside the kernel (see ``kernels/conflict.py``).
     """
+    args = (colors, priority, ell_idx, rows, cu, pu, ids, newly)
     if _on_cuda(colors):
-        return conflict_cuda(colors, priority, ell_idx, rows, cu, pu, ids,
-                             newly, tile_rows)
-    return conflict_rows_plain(colors, priority, ell_idx, rows, cu, pu, ids,
-                               newly)
+        return kernel_call("conflict", conflict_cuda, *args, tile_rows)
+    return kernel_call("conflict", conflict_rows_plain, *args)
 
 
 def compact(mask: torch.Tensor, capacity: "int | None" = None,
@@ -91,7 +96,7 @@ def compact(mask: torch.Tensor, capacity: "int | None" = None,
     capacity = n if capacity is None else capacity
     sentinel = n if sentinel is None else sentinel
     fn = compact_cuda if _on_cuda(mask) else compact_plain
-    return fn(mask, capacity, sentinel, values)
+    return kernel_call("compact", fn, mask, capacity, sentinel, values)
 
 
 def fused_compact(colors, priority, ell_idx, rows, base, cu, pu, ids,
@@ -106,10 +111,11 @@ def fused_compact(colors, priority, ell_idx, rows, base, cu, pu, ids,
     args = (colors, priority, ell_idx, rows, base, cu, pu, ids, active,
             pending, hub_forb, hub_lose, hub_slot, window)
     if _on_cuda(colors):
-        return fused_compact_cuda(*args, capacity=capacity,
-                                  n_sentinel=n_sentinel, tile_rows=tile_rows)
-    return fused_compact_rows_plain(*args, capacity=capacity,
-                                    n_sentinel=n_sentinel)
+        return kernel_call("fused_compact", fused_compact_cuda, *args,
+                           capacity=capacity, n_sentinel=n_sentinel,
+                           tile_rows=tile_rows)
+    return kernel_call("fused_compact", fused_compact_rows_plain, *args,
+                       capacity=capacity, n_sentinel=n_sentinel)
 
 
 def fused_step(colors, priority, ell_idx, rows, base, cu, pu, ids, pending,
@@ -126,8 +132,8 @@ def fused_step(colors, priority, ell_idx, rows, base, cu, pu, ids, pending,
     args = (colors, priority, ell_idx, rows, base, cu, pu, ids, pending,
             hub_forb, hub_lose, hub_slot, window)
     if _on_cuda(colors):
-        return fused_step_cuda(*args, tile_rows)
-    return fused_step_rows_plain(*args)
+        return kernel_call("fused_step", fused_step_cuda, *args, tile_rows)
+    return kernel_call("fused_step", fused_step_rows_plain, *args)
 
 
 def jpl_extrema(ell_idx: torch.Tensor, rows: "torch.Tensor | None",
@@ -141,8 +147,10 @@ def jpl_extrema(ell_idx: torch.Tensor, rows: "torch.Tensor | None",
     neighbours are gathered inside the kernel (see
     ``kernels/jpl_prio.py``)."""
     if _on_cuda(ell_idx):
-        return jpl_extrema_cuda(ell_idx, rows, source, tile_rows)
-    return jpl_extrema_rows_plain(ell_idx, rows, source)
+        return kernel_call("jpl_prio", jpl_extrema_cuda, ell_idx, rows,
+                           source, tile_rows)
+    return kernel_call("jpl_prio", jpl_extrema_rows_plain, ell_idx, rows,
+                       source)
 
 
 def frontier_probe(nbr: torch.Tensor,
@@ -150,4 +158,4 @@ def frontier_probe(nbr: torch.Tensor,
     """Per-row ``any(nbr) & unvisited``: nbr (R, K) bool, unvisited (R,)
     bool (see ``kernels/frontier.py``)."""
     fn = frontier_probe_cuda if _on_cuda(nbr) else frontier_probe_plain
-    return fn(nbr, unvisited)
+    return kernel_call("frontier", fn, nbr, unvisited)

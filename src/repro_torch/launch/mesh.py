@@ -16,8 +16,14 @@ experts over the model axis, their ``ff`` dimension over the FSDP axes,
 each piece on its shard's device. A piece on the parameters' own device
 is a view, never a copy.
 
-The reference's TPU pod meshes (``make_production_mesh``) and its v5e
-constants are not ported: the port runs on an H100.
+``make_production_mesh`` is the reference's production mesh carried over
+to DGX H100 nodes of eight NVLink-joined cards: ``("data", "model") =
+(32, 8)``, 256 cards, or ``("pod", "data", "model") = (2, 32, 8)``, 512.
+The model axis stays inside one node, so tensor-parallel traffic never
+leaves NVLink (the reference keeps it inside a pod); the data and pod
+axes cross the network. Its entries are on the ``meta`` device by
+default, for ``launch/dryrun.py``'s counts. The H100 constants below
+price those counts (``launch/roofline.py``).
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.obs import opcost_hooks
 
 
 class DeviceMesh:
@@ -102,6 +109,36 @@ def make_mesh(shape, axis_names, devices=None) -> DeviceMesh:
     return DeviceMesh(grid.reshape(shape), axis_names)
 
 
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices="meta") -> DeviceMesh:
+    """The production mesh: ``("data", "model") = (32, 8)``, or with
+    ``multi_pod`` ``("pod", "data", "model") = (2, 32, 8)``; ``devices``
+    as for ``make_mesh`` (one device for every entry by default, the
+    ``meta`` device, where nothing is allocated)."""
+    shape = (2, 32, 8) if multi_pod else (32, 8)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices)
+
+
+# NVIDIA H100 SXM5 80GB HBM3 at 700 W, per card (the H100 data sheet and
+# the DGX H100 user guide)
+#: dense bf16 tensor-core peak, FLOP/s
+PEAK_FLOPS_BF16 = 989.4e12
+#: dense peak FLOP/s by the type the products run in (the data sheet's
+#: rates without sparsity; float32 products outside the tensor cores, as
+#: PyTorch runs them with TF32 off, its default; float64 on the tensor
+#: cores)
+PEAK_FLOPS = {"bfloat16": PEAK_FLOPS_BF16, "float16": PEAK_FLOPS_BF16,
+              "float8_e4m3fn": 1978.9e12, "float8_e5m2": 1978.9e12,
+              "int8": 1978.9e12, "float32": 66.9e12, "float64": 66.9e12}
+#: HBM3 bandwidth, bytes/s
+HBM_BW = 3.35e12
+#: NVLink 4 (18 links), bytes/s per direction per card: the model axis
+NVLINK_BW = 450e9
+#: one 400 Gb/s ConnectX-7 port per card, bytes/s: the data and pod axes
+NET_BW = 50e9
+
+
 def make_local_mesh(devices=None) -> DeviceMesh:
     """A one-entry mesh with the production axis names ``("data",
     "model")``."""
@@ -165,8 +202,9 @@ def expert_pieces(w, m: int, n_model: int, n_fsdp: int,
                          f"{n_fsdp} FSDP shards")
     e_local, f_local = e // n_model, f // n_fsdp
     mine = w.narrow(w.ndim - 3, m * e_local, e_local)
-    return [mine.narrow(w.ndim + ff_axis, j * f_local, f_local)
-            for j in range(n_fsdp)]
+    # one split (not a narrow a slice): its gradient is one join, however
+    # many FSDP shards there are
+    return list(mine.split(f_local, dim=w.ndim + ff_axis))
 
 
 def gather_experts(w, m: int, mesh: DeviceMesh, *, model_axis: str,
@@ -180,7 +218,9 @@ def gather_experts(w, m: int, mesh: DeviceMesh, *, model_axis: str,
                            mesh.axis_size(fsdp_axes), ff_axis)
     if len(pieces) == 1:
         return pieces[0].to(device)
-    return torch.cat([p.to(device) for p in pieces], dim=ff_axis)
+    return opcost_hooks.collective(
+        torch.cat([p.to(device) for p in pieces], dim=ff_axis),
+        "all-gather", fsdp_axes, back="reduce-scatter")
 
 
 def place_params(params: dict, mesh: DeviceMesh, *, model_axis: str = "model",

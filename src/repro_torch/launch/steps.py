@@ -23,8 +23,9 @@ The LM, GNN and DLRM steps update their parameters, optimizer state and
 KV cache in place (``donate`` names the arguments the reference aliases
 into its outputs). ``ipgc_case`` runs ``core.ipgc.dense_step``, and with
 it the ``mex_window``, ``conflict`` and ``compact`` kernels on the card.
-The reference's ``multi_pod`` argument picks a TPU pod's mesh rules and
-is not ported.
+On a mesh with a ``pod`` axis (``launch.mesh.make_production_mesh(
+multi_pod=True)``) the batch and FSDP axes are ``("pod", "data")``, the
+reference's ``multi_pod`` rules.
 """
 from __future__ import annotations
 
@@ -157,8 +158,13 @@ class _Draw:
 
 def _axes(mesh) -> tuple[tuple, tuple]:
     """(batch axes, FSDP axes): the reference's ``_batch`` and ``embed``
-    rules on a mesh, none without one."""
-    return (DATA_AXES, DATA_AXES) if mesh is not None else ((), ())
+    rules on a mesh, none without one. A mesh with a ``pod`` axis (the
+    multi-pod mesh of ``launch.mesh.make_production_mesh``) splits both
+    over ``("pod", "data")``, as the reference's multi-pod rules do."""
+    if mesh is None:
+        return (), ()
+    axes = ("pod",) + DATA_AXES if "pod" in mesh.shape else DATA_AXES
+    return axes, axes
 
 
 def _arg_device(mesh, device):
@@ -372,10 +378,14 @@ GNN_MODS = {
 }
 
 
+#: the largest edge chunk a GNN step takes
+EDGE_CHUNK_MAX = 262144
+
+
 def _gnn_cfg(arch: ArchSpec, shape: ShapeSpec, mesh):
     cfg = arch.make_config()
     if arch.arch_id == "equiformer-v2":
-        chunk = min(cfg.edge_chunk, 262144)
+        chunk = min(cfg.edge_chunk, EDGE_CHUNK_MAX)
         cfg = dataclasses.replace(cfg, edge_shard_axes=_axes(mesh)[0],
                                   edge_chunk=chunk)
     if arch.arch_id == "graphsage-reddit" and "d_feat" in shape.params:
@@ -414,9 +424,11 @@ def _gnn_flops(arch_id: str, cfg, n: int, e: int) -> int:
 def gnn_loss(arch_id: str, cfg, mesh=None):
     """``_gnn_loss``: GraphSAGE's cross-entropy over the nodes, the MSE of
     the per-graph outputs against ``targets`` otherwise. ``mesh`` goes to
-    EquiformerV2's forward (its edge shards)."""
+    the forward of a config with edge shards (``cfg.edge_shard_axes``);
+    any other GNN runs unsharded on a mesh."""
     mod = GNN_MODS[arch_id]
-    kw = {} if mesh is None else {"mesh": mesh}
+    kw = {"mesh": mesh} if mesh is not None and \
+        getattr(cfg, "edge_shard_axes", ()) else {}
 
     def loss(params, batch, targets):
         if arch_id == "graphsage-reddit":
@@ -452,7 +464,7 @@ def gnn_full_case(arch: ArchSpec, shape: ShapeSpec, mesh=None, *,
     mod = GNN_MODS[arch.arch_id]
     cfg = _gnn_cfg(arch, shape, mesh)
     batch_axes = _axes(mesh)[0]
-    n_shards = mesh.axis_size(DATA_AXES) if mesh is not None else 1
+    n_shards = mesh.axis_size(batch_axes) if mesh is not None else 1
     gran = max(1024, n_shards)
     if molecule:
         bsz = shape.params["batch"]
@@ -476,9 +488,11 @@ def gnn_full_case(arch: ArchSpec, shape: ShapeSpec, mesh=None, *,
     loss = None
     if owner:
         def loss(p, b_, _t):
+            coords = None if mesh is None else mesh.coords(batch_axes)
             devices = [b_.node_feat.device] if mesh is None else \
-                [mesh.device(**c) for c in mesh.coords(batch_axes)]
-            logits = sage_mod.forward_full_owner(p, b_, cfg, devices=devices)
+                [mesh.device(**c) for c in coords]
+            logits = sage_mod.forward_full_owner(p, b_, cfg, devices=devices,
+                                                 coords=coords)
             return mcommon.cross_entropy(logits, b_.node_label)
     inner = full_step(arch.arch_id, cfg, opt_cfg, keep_grads, mesh, loss)
 

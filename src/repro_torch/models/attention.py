@@ -19,6 +19,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.obs import opcost_hooks
 
 _NEG_INF = float("-inf")
 
@@ -113,7 +114,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             k_pos = torch.arange(k0, k0 + k_chunk, device=dev)
             args = (qc, k[:, k0:k0 + k_chunk], v[:, k0:k0 + k_chunk], carry,
                     q_pos, k_pos, causal, scale)
-            carry = (checkpoint(_chunk_attn_block, *args, use_reentrant=False)
+            carry = (checkpoint(_chunk_attn_block, *args, use_reentrant=False,
+                                context_fn=opcost_hooks.recompute_context)
                      if remat else _chunk_attn_block(*args))
         _, l, acc = carry
         out = acc / l.clamp(min=1e-30)[..., None]         # (B,Hk,G,cq,D)
@@ -122,7 +124,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     outs = []
     for q0 in range(0, sq, q_chunk):
         args = (qg[:, q0:q0 + q_chunk], k, v, q0)
-        outs.append(checkpoint(q_block, *args, use_reentrant=False)
+        outs.append(checkpoint(q_block, *args, use_reentrant=False,
+                               context_fn=opcost_hooks.recompute_context)
                     if remat else q_block(*args))
     return torch.cat(outs, dim=1).to(q.dtype)
 

@@ -29,7 +29,7 @@ devices on those axes (``forward``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, ClassVar
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from repro_torch.models import common as mcommon
 from repro_torch.models.gnn import common as g
 from repro_torch.models.gnn import so3
+from repro_torch.obs import opcost_hooks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +54,10 @@ class EqV2Config:
     edge_chunk: int = 8192
     edge_shard_axes: tuple = ()   # mesh axes to shard each edge chunk over
     dtype: Any = torch.float32
+    #: every layer of the ``n_layers`` stack has the same shapes and work,
+    #: so the dry run counts the stack at two depths and extends the counts
+    #: (``launch/dryrun.py``'s depth rule)
+    repeated_layers: ClassVar[bool] = True
 
     @property
     def s_dim(self) -> int:
@@ -160,13 +165,15 @@ def _edge_messages(h, q, p, i, part, cfg: EqV2Config, n: int):
             g.scatter_sum(a.repeat_interleave(hd, dim=-1), d_c, n))
 
 
-def _layer(x, p, i, edges, cfg: EqV2Config, devices=None):
+def _layer(x, p, i, edges, cfg: EqV2Config, devices=None, coords=None):
     """One eSCN attention block + FFN.
 
     edges: per-chunk tuples (src, dst, unit, rbf, edge_ok); the Wigner
-    matrices are built per chunk. With ``devices`` (the edge shards'),
-    each chunk is split into one part a device, each part's messages are
-    computed there, and the partial scatters are summed on ``x``'s device.
+    matrices are built per chunk. With ``devices`` (the edge shards', at
+    mesh coordinates ``coords``), each chunk is split into one part a
+    device, each part's messages are computed there, and the partial
+    scatters are summed on ``x``'s device (the all-reduce of a
+    multi-process run).
     """
     n = x.shape[0]
     h = _eq_norm(x, p[f"norm_{i}"], cfg.l_max)
@@ -187,8 +194,16 @@ def _layer(x, p, i, edges, cfg: EqV2Config, devices=None):
             parts = [(tuple(a.to(dev) for a in part), *mine[dev])
                      for dev, part in zip(devices, zip(
                          *(a.tensor_split(len(devices)) for a in chunk)))]
-        for part, h_d, q_d, p_d in parts:
-            num_p, den_p = _edge_messages(h_d, q_d, p_d, i, part, cfg, n)
+        for j, (part, h_d, q_d, p_d) in enumerate(parts):
+            if coords is None:
+                num_p, den_p = _edge_messages(h_d, q_d, p_d, i, part, cfg, n)
+            else:
+                with opcost_hooks.shard(coords[j]):
+                    num_p, den_p = (
+                        opcost_hooks.collective(t, "all-reduce",
+                                                cfg.edge_shard_axes)
+                        for t in _edge_messages(h_d, q_d, p_d, i, part, cfg,
+                                                n))
             num = num + num_p.to(x.device)
             den = den + den_p.to(x.device)
     # a node no valid edge reaches has den = num = 0 and agg = 0, as in
@@ -219,12 +234,13 @@ def forward(params, batch: g.GraphBatch, cfg: EqV2Config, *,
     messages on its own device, the partial scatters summed on the
     parameters' device. Without a mesh, edge shard axes are refused (the
     reference's constraint needs a mesh in context)."""
-    devices = None
+    devices = coords = None
     if cfg.edge_shard_axes:
         if mesh is None:
             raise ValueError(f"edge_shard_axes {cfg.edge_shard_axes} shard "
                              "the edge chunks over a mesh: pass mesh=")
-        devices = [mesh.device(**c) for c in mesh.coords(cfg.edge_shard_axes)]
+        coords = mesh.coords(cfg.edge_shard_axes)
+        devices = [mesh.device(**c) for c in coords]
     n = batch.node_feat.shape[0]
     e_total = batch.edge_src.shape[0]
     species = g.species_of(batch.node_feat, cfg.n_species)
@@ -252,7 +268,7 @@ def forward(params, batch: g.GraphBatch, cfg: EqV2Config, *,
     edges = list(zip(*(a.chunk(n_chunks) for a in
                        (batch.edge_src, batch.edge_dst, unit, rbf, edge_ok))))
     for i in range(cfg.n_layers):
-        x = _layer(x, params, i, edges, cfg, devices)
+        x = _layer(x, params, i, edges, cfg, devices, coords)
 
     e_atom = F.silu(x[:, 0, :] @ params["head0"] + params["head0b"])
     e_atom = (e_atom @ params["head1"])[:, 0]

@@ -11,6 +11,7 @@ shard a device of a list (several may share one).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -20,6 +21,7 @@ import torch.nn.functional as F
 from repro_torch.graphs.sampler import SampledBlocks
 from repro_torch.models import common as mcommon
 from repro_torch.models.gnn import common as g
+from repro_torch.obs import opcost_hooks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,35 +102,51 @@ def forward_sampled(params, feats: torch.Tensor, blocks: SampledBlocks,
 
 
 def forward_full_owner(params, batch: g.GraphBatch, cfg: SAGEConfig, *,
-                       devices: list) -> torch.Tensor:
+                       devices: list, coords: "list | None" = None
+                       ) -> torch.Tensor:
     """Owner-computes full-graph forward, one node block a shard and one
     shard an entry of ``devices`` (several may share one device).
 
     The edges are pre-partitioned by their destination's block, so every
     message is summed on its owner: each layer gathers the (N, d) table
-    once onto every shard and runs a local gather + segment-mean for the
-    shard's block. A pad edge (dst = N) belongs to no shard. With every
-    shard on one device it computes ``forward_full``. Returns (N,
-    n_classes) on ``devices[0]``."""
+    once onto every shard (the all-gather of a multi-process run) and runs
+    a local gather + segment-mean for the shard's block. A pad edge (dst =
+    N) belongs to no shard. With every shard on one device it computes
+    ``forward_full``. ``coords`` gives each shard's mesh coordinates for
+    the op counter (``obs/opcost_hooks.py``). Returns (N, n_classes) on
+    ``devices[0]``."""
     n = batch.node_feat.shape[0]
     n_shards = len(devices)
     assert n % n_shards == 0, (n, n_shards)
     blk = n // n_shards
     devs = [torch.device(d) for d in devices]
+
+    def mine(s: int):
+        return opcost_hooks.shard(coords[s]) if coords \
+            else contextlib.nullcontext()
+
+    axes = tuple(coords[0]) if coords else ()
     owner = torch.div(batch.edge_dst.long(), blk, rounding_mode="floor")
     edges, outs, ps = [], [], []
     for s, dev in enumerate(devs):
-        keep = owner == s
-        src = torch.clamp(batch.edge_src[keep], max=n).to(dev)
-        dst_local = (batch.edge_dst[keep].long() - s * blk).to(dev)
+        with mine(s):
+            keep = owner == s
+            src = torch.clamp(batch.edge_src[keep], max=n).to(dev)
+            dst_local = (batch.edge_dst[keep].long() - s * blk).to(dev)
         edges.append((src, dst_local))
         outs.append(batch.node_feat[s * blk:(s + 1) * blk].to(dev))
         ps.append({k: v.to(dev) for k, v in params.items()})
     for i in range(cfg.n_layers):
-        gathered = [torch.cat([o.to(dev) for o in outs]) for dev in devs]
-        outs = [_layer(ps[s], i, outs[s], g.scatter_mean(
-            g.with_pad_row(gathered[s])[edges[s][0]], edges[s][1], blk),
-            last=(i == cfg.n_layers - 1)) for s in range(n_shards)]
+        new = []
+        for s, dev in enumerate(devs):
+            with mine(s):
+                full = opcost_hooks.collective(
+                    torch.cat([o.to(dev) for o in outs]), "all-gather", axes,
+                    back="reduce-scatter")
+                new.append(_layer(ps[s], i, outs[s], g.scatter_mean(
+                    g.with_pad_row(full)[edges[s][0]], edges[s][1], blk),
+                    last=(i == cfg.n_layers - 1)))
+        outs = new
     return torch.cat([o.to(devs[0]) for o in outs])
 
 

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch.launch.mesh import (EXPERT_FF_AXIS, data_shards,
                                      gather_experts, split_batch)
+from repro_torch.obs import opcost_hooks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,8 +174,9 @@ def shard_routes(x_l: torch.Tensor, router: torch.Tensor, cfg: MoESettings,
             routed[dev] = (xt, *router_topk(xt, router.to(dev), k))
         xt, gates, eids, aux = routed[dev]
         e_off = m * e_local
-        routing = dispatch(eids, e_offset=e_off, e_local=e_local,
-                           capacity=capacity)
+        with opcost_hooks.shard({model_axis: m}):
+            routing = dispatch(eids, e_offset=e_off, e_local=e_local,
+                               capacity=capacity)
         out.append(Route(m, dev, xt, gates, eids, aux, *routing, e_off,
                          e_local, capacity))
     return out
@@ -193,16 +195,29 @@ def moe_shard(x_l: torch.Tensor, p: dict, cfg: MoESettings, mesh,
     routes = shard_routes(x_l, p["router"], cfg, mesh, data,
                           model_axis=model_axis)
     out = None
+    axis = (model_axis,)
     for r in routes:
-        w = [gather_experts(p[name], r.model, mesh, model_axis=model_axis,
-                            fsdp_axes=fsdp_axes, ff_axis=EXPERT_FF_AXIS[name],
-                            device=r.device)
-             for name in ("we_in", "we_gate", "we_out")]
-        y = _experts(r.xt, r.gates, (r.flat_tok, r.keep, r.slot), *w,
-                     e_local=r.e_local, capacity=r.capacity).to(home)
+        with opcost_hooks.shard({model_axis: r.model}):
+            w = [gather_experts(p[name], r.model, mesh,
+                                model_axis=model_axis, fsdp_axes=fsdp_axes,
+                                ff_axis=EXPERT_FF_AXIS[name], device=r.device)
+                 for name in ("we_in", "we_gate", "we_out")]
+            # the op counter's record of the reference's collectives: the
+            # tokens are replicated over the model axis (no transfer; the
+            # gradient pass sums their gradient over it), the outputs are
+            # summed over it (its psum, and the psum its gradient pass
+            # makes of that sum's gradient)
+            xt = opcost_hooks.collective(r.xt, None, axis, back="all-reduce")
+            y = _experts(xt, r.gates, (r.flat_tok, r.keep, r.slot), *w,
+                         e_local=r.e_local, capacity=r.capacity)
+            y = opcost_hooks.collective(y, "all-reduce", axis,
+                                        back="all-reduce").to(home)
         out = y if out is None else out + y
-    # every model shard routes the same tokens: one aux a data shard
-    return out.reshape(x_l.shape), routes[0].aux.to(home)
+    # every model shard routes the same tokens: one aux a data shard, the
+    # reference's pmean over the batch and model axes
+    aux = opcost_hooks.collective(routes[0].aux, "all-reduce",
+                                  tuple(data) + axis, back="all-reduce")
+    return out.reshape(x_l.shape), aux.to(home)
 
 
 def moe_ffn(x: torch.Tensor, p: dict, cfg: MoESettings, *, mesh=None,
@@ -226,8 +241,9 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: MoESettings, *, mesh=None,
     shards = data_shards(mesh, batch_axes)
     outs, auxs = [], []
     for (coords, dev), x_l in zip(shards, split_batch(x, len(shards))):
-        y, aux = moe_shard(x_l.to(dev), p, cfg, mesh, coords,
-                           model_axis=model_axis, fsdp_axes=fsdp_axes)
+        with opcost_hooks.shard(coords):
+            y, aux = moe_shard(x_l.to(dev), p, cfg, mesh, coords,
+                               model_axis=model_axis, fsdp_axes=fsdp_axes)
         outs.append(y.to(x.device))
         auxs.append(aux.to(x.device))
     return torch.cat(outs), torch.stack(auxs).mean()

@@ -27,8 +27,9 @@ compute the same function.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, NamedTuple
+from typing import Any, ClassVar, NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -43,6 +44,7 @@ from repro_torch.models.attention import (KVCache, apply_rope,
                                           rope_angles)
 from repro_torch.launch.mesh import data_shards, split_batch
 from repro_torch.models.moe import MoESettings, moe_ffn, moe_shard
+from repro_torch.obs import opcost_hooks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +66,10 @@ class LMConfig:
     q_chunk: int = 512
     k_chunk: int = 1024
     embed_scale: bool = False           # gemma multiplies embeddings by sqrt(d)
+    #: every layer of the ``n_layers`` stack has the same shapes and work,
+    #: so the dry run counts the stack at two depths and extends the counts
+    #: (``launch/dryrun.py``'s depth rule)
+    repeated_layers: ClassVar[bool] = True
 
     def _attn(self) -> int:
         d = self.d_model
@@ -272,12 +278,22 @@ def _on(tree, dev):
     return tree.to(dev) if torch.is_tensor(tree) else tree
 
 
+def _in_shard(sh: "Shard | None"):
+    """The op counter's context of a data shard (none without a mesh)."""
+    return opcost_hooks.shard(sh.coords) if sh is not None \
+        else contextlib.nullcontext()
+
+
 def _per_shard(fn, params, tokens, shards, *rest) -> list:
     """``fn(params, tokens, *rest, shard)`` on each data shard's rows of
     ``tokens``, on its home device (the rows are views when the device is
     the tokens')."""
-    return [fn(_on(params, dev), t if dev is None else t.to(dev), *rest, sh)
-            for (sh, dev), t in zip(shards, split_batch(tokens, len(shards)))]
+    out = []
+    for (sh, dev), t in zip(shards, split_batch(tokens, len(shards))):
+        with _in_shard(sh):
+            out.append(fn(_on(params, dev), t if dev is None else t.to(dev),
+                          *rest, sh))
+    return out
 
 
 def _gather(parts, dev, dim: int = 0):
@@ -296,7 +312,8 @@ def _forward(params, tokens, cfg: LMConfig, collect_kv: bool,
     auxs, ks, vs = [], [], []
     for lp in _layers(params)[:cfg.n_layers]:
         args = (x, lp, cfg, cos, sin, shard)
-        x, aux, (k, v) = (checkpoint(_block, *args, use_reentrant=False)
+        x, aux, (k, v) = (checkpoint(_block, *args, use_reentrant=False,
+                                     context_fn=opcost_hooks.recompute_context)
                           if remat else _block(*args))
         auxs.append(aux)
         if collect_kv:
@@ -481,7 +498,9 @@ def decode_step(params: dict, tokens: torch.Tensor,
         raise ValueError("decoding on a mesh takes the MeshKVCache that "
                          "prefill made on a mesh of the same data shards")
     rows = split_batch(tokens, len(shards))
-    parts = [_decode(_on(params, dev), t.to(dev), c, cfg, sh)
-             for (sh, dev), t, c in zip(shards, rows, cache.shards)]
+    parts = []
+    for (sh, dev), t, c in zip(shards, rows, cache.shards):
+        with _in_shard(sh):
+            parts.append(_decode(_on(params, dev), t.to(dev), c, cfg, sh))
     return (_gather([p[0] for p in parts], tokens.device),
             MeshKVCache(tuple(p[1] for p in parts)))

@@ -1,6 +1,7 @@
 """Telemetry of the port: the scoped counter groups the engine's launch,
 gather and exchange accounting uses, the stream service's instruments and
-registry, span tracing, run reports and the exchange byte formulas."""
+registry, span tracing, run reports and the exchange byte formulas; the
+op counter's hooks (``opcost_hooks``) are imported from their module."""
 from repro_torch.obs.metrics import (DEPTH_EDGES, LATENCY_EDGES,  # noqa: F401
                                      SLACK_EDGES, Counter, CounterGroup,
                                      Gauge, Histogram, MetricsRegistry,
