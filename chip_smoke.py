@@ -38,7 +38,15 @@ each failing the script on any error:
    the kernels line's ``tile_ms``) and at the edge-case sizes (and 1024),
    and, after europe's outlined runs, at europe's dense shape
    (``tune.kernels_main_path`` lines, beside the default block's ms and
-   the tile "auto" resolves to);
+   the tile "auto" resolves to); the int8 decode's ``q8_dot`` (no
+   Pallas kernel: the reference's int8 x int8 -> int32 dots) at
+   Minitron-4B's widths (8 KV heads of 128, G = 3) and 32,768 and 140,000
+   positions, and at phase 8's serving shape (batch 8, Qwen3's 4 KV heads
+   of 128, G = 8, a 96-position cache), random and all 127s, exactly (the
+   values' int32 sums of 127s wrap past 2^31 at 140,000, as the
+   reference's do), one layer's pair of calls timed, and held exactly, at
+   32,768 positions and at ``long_500k``'s 524,288 (``kernels.q8_dot``
+   line); its launches are phase 8's int8 run's;
 3. path: on kron_g500-logn21_s at scale 32 (2**21 nodes, ell-tail, hubs)
    and europe_osm_s at scale 127 (50.8M nodes, pure-ell), the hybrid Pipe
    (``repro_torch.color``) with ipgc two-phase and fused, jpl and
@@ -165,7 +173,9 @@ each failing the script on any error:
    prompt 64, 32 generated tokens, temperature 0.8) with a bf16 and an
    int8 KV cache, each after an untimed warm-up call; init seconds, prefill
    ms and tok/s, decode ms a step and tok/s, peak GiB (``lm.serve``
-   lines); every logit finite; the int8 run's first decode step within
+   lines; the attention products on bf16 operands, the int8 run's through
+   ``q8_dot``, whose launches it counts, the bf16 run's none); every logit
+   finite; the int8 run's first decode step within
    ``LM_INT8_REL`` of the bf16 run's; and decode at position 63 (prefill
    of 63 tokens, one step) against ``forward`` at 63 within
    ``LM_DECODE_REL``, at a capacity factor that drops no token (the MoE
@@ -243,7 +253,9 @@ each failing the script on any error:
    share over ``BF16_PEAK_FLOPS``, peak GiB; the paper-ipgc cells count
    ``mex_window``, ``conflict`` and ``compact`` (each above 0, the kernels
    line's ``cases_launches``) and equal the same step through the plain
-   twins. Every other cell is reckoned before anything of it is
+   twins; the int8 decode variants count ``q8_dot``'s launches (above 0,
+   the kernels line's ``cases_launches``). Every other cell is reckoned
+   before anything of it is
    allocated (its arguments, then the activations of one step measured at
    a smaller shape and scaled: ``reckon``) and runs where that fits
    ``CASES_FIT`` of the free memory, else is logged as ``cases.left_out``
@@ -366,7 +378,13 @@ SOURCES = {
                        "src/repro/kernels/frontier.py:35", "frontier"),
     "fused_step": ("src/repro_torch/kernels/csrc/fused_step.cu",
                    "src/repro/kernels/fused_step.py:99", "fused_step"),
+    # the int8 decode's products: no Pallas kernel, the reference's
+    # int8 x int8 -> int32 dots (its scores at :215, values at :228)
+    "q8_dot": ("src/repro_torch/kernels/csrc/q8_dot.cu",
+               "src/repro/models/attention.py:215", "q8_dot"),
 }
+#: the kernels of the coloring paths (phases 3-7)
+COLORING = tuple(k for k in SOURCES if k != "q8_dot")
 #: the shards of the distributed Pipe on kron: four on the one card
 KRON_SHARDS = 4
 
@@ -1132,6 +1150,120 @@ def kernel_phase(ig, window: int, reps: int = 10) -> dict:
     log(phase="kernels.main_path", rows=list(rows.values()), tile_rows=tile,
         frontier_size=int(frontier.sum()))
     return rows
+
+
+#: the int8 decode's kernel, held exactly against its twin at these (B, S,
+#: Hk, G, D): Minitron-4B's widths (one sequence, 8 KV heads of 128, G = 3)
+#: at 32,768 positions and at 140,000, past 133,144, where 127^2 * S passes
+#: 2^31 and the values' int32 sums of 127s wrap; ``q8_serve_shape`` adds
+#: phase 8's int8 serving shape
+Q8_CHECKED = ((1, 32_768, 8, 3, 128), (1, 140_000, 8, 3, 128))
+#: the timed shapes (also held exactly): Minitron-4B at 32,768 positions
+#: (the row's numbers) and at long_500k's 524,288 (``long``)
+Q8_TIMED = ((1, 32_768, 8, 3, 128), (1, 524_288, 8, 3, 128))
+
+
+def q8_serve_shape() -> tuple:
+    """(B, S, Hk, G, D) of phase 8's int8 decode: ``LM_SERVE``'s batch, its
+    cache of prompt + generated positions, ``LM_ARCH``'s heads."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(LM_ARCH).make_config()
+    return (LM_SERVE["batch"], LM_SERVE["prompt_len"] + LM_SERVE["gen"],
+            cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim)
+
+
+def q8_operands(shape: tuple, gen, fill=None) -> tuple:
+    """(qq, k, pq, v) of one layer's decode at ``shape`` (B, S, Hk, G, D):
+    random int8 in [-127, 127], or every entry ``fill`` (v its negative)."""
+    b, s, hk, g, d = shape
+    dev = torch.device("cuda")
+
+    def draw(size, value):
+        if value is not None:
+            return torch.full(size, value, dtype=torch.int8, device=dev)
+        return torch.randint(-127, 128, size, generator=gen, device=dev,
+                             dtype=torch.int16).to(torch.int8)
+
+    return (draw((b, hk, g, d), fill), draw((b, s, hk, d), fill),
+            draw((b, hk, g, s), fill),
+            draw((b, s, hk, d), None if fill is None else -fill))
+
+
+def q8_row(reps: int = 10) -> dict:
+    """``q8_dot`` against its plain twin, exactly, at ``Q8_CHECKED`` and
+    phase 8's serving shape (random and all 127s, whose values wrap past
+    2^31 at 140,000), then one layer's pair of calls timed, and held
+    exactly, at ``Q8_TIMED``: the row's ms, plain ms and bound (both calls'
+    bytes, their int8 FLOPs at the int8 peak) at 32,768 positions, and
+    ``long`` at 524,288. Its launches are the LM phase's."""
+    from repro_torch.kernels import q8_dot
+    from repro_torch.launch.mesh import PEAK_FLOPS
+
+    gen = torch.Generator(device="cuda").manual_seed(LM_SEED)
+    checked, err = [], 0
+    for shape in (*Q8_CHECKED, q8_serve_shape()):
+        s = shape[1]
+        for fill in (None, 127):
+            qq, k, pq, v = q8_operands(shape, gen, fill)
+            want = q8_dot.values_plain(pq, v)
+            err = max(err, assert_equal(
+                (ops.q8_scores(qq, k), ops.q8_values(pq, v)),
+                (q8_dot.scores_plain(qq, k), want),
+                f"q8_dot at {shape}, fill={fill}"))
+            exact = -fill * fill * s if fill else 0
+            wraps = abs(exact) >= 2**31
+            if fill and not torch.all(
+                    want == (exact + 2**31) % 2**32 - 2**31):
+                raise AssertionError(f"q8_dot at {shape}: the sum is not "
+                                     "the exact one modulo 2^32")
+            checked.append(dict(shape=shape, fill=fill, equal=True,
+                                wraps=wraps))
+    if not any(c["wraps"] for c in checked):
+        raise AssertionError("q8_dot: no checked sum wrapped past 2^31")
+
+    def timed(shape: tuple) -> dict:
+        b, s, hk, g, d = shape
+        qq, k, pq, v = q8_operands(shape, gen)
+        out = {}
+        for name, fn, plain, a, cache, n_out in (
+                ("scores", ops.q8_scores, q8_dot.scores_plain, qq, k,
+                 b * hk * g * s),
+                ("values", ops.q8_values, q8_dot.values_plain, pq, v,
+                 b * hk * g * d)):
+            assert_equal(fn(a, cache), plain(a, cache),
+                         f"q8_dot {name} at {shape}")
+            nbytes = a.numel() + cache.numel() + 4 * n_out
+            int8_ops = q8_dot.flops(a, cache)["int8"]
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = int8_ops / PEAK_FLOPS["int8"]
+            out[name] = dict(
+                ms=cuda_ms(lambda: fn(a, cache), reps),
+                plain_ms=cuda_ms(lambda: plain(a, cache), 3),
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, int8_ops=int8_ops)
+        return out
+
+    main = timed(Q8_TIMED[0])
+    at_long = timed(Q8_TIMED[1])
+    b, s, hk, g, d = Q8_TIMED[0]
+    row = dict(
+        name="q8_dot", route="cuda", source=SOURCES["q8_dot"][0],
+        replaces=SOURCES["q8_dot"][1], launches=0, max_abs_err=err,
+        equal=True, ms=sum(v["ms"] for v in main.values()),
+        plain_ms=sum(v["plain_ms"] for v in main.values()),
+        bound_ms=sum(v["bound_ms"] for v in main.values()),
+        bound_by="bytes" if all(v["bound_by"] == "bytes"
+                                for v in main.values()) else "operations",
+        library_ms=None, parts=main,
+        long=dict(s=Q8_TIMED[1][1], parts=at_long,
+                  ms=sum(v["ms"] for v in at_long.values()),
+                  bound_ms=sum(v["bound_ms"] for v in at_long.values())),
+        checked=checked,
+        shape=dict(batch=b, s=s, kv_heads=hk, group=g, head_dim=d))
+    log(phase="kernels.q8_dot", **row)
+    return row
 
 
 # --- phase 3 -------------------------------------------------------------------
@@ -2951,6 +3083,10 @@ def weight_sums(params: dict) -> dict:
     return out
 
 
+#: the kernel launches of phase 8's int8 serving run (the q8 row's)
+_lm_launches: dict = {}
+
+
 def lm_serve_phase(card: str) -> dict:
     """Qwen3-30B-A3B at its published widths, 8 of 48 layers, bf16: init
     at random from a seed, ``serve()`` with the reference's defaults with
@@ -2994,9 +3130,16 @@ def lm_serve_phase(card: str) -> dict:
     runs = {}
     for kv_int8 in (False, True):
         torch.cuda.reset_peak_memory_stats()
-        r = serve(cfg, params=params, kv_int8=kv_int8,
-                  generator=torch.Generator(device=dev).manual_seed(1),
-                  **LM_SERVE)
+        with _build.KERNEL_LAUNCHES.scope() as kl:
+            r = serve(cfg, params=params, kv_int8=kv_int8,
+                      generator=torch.Generator(device=dev).manual_seed(1),
+                      **LM_SERVE)
+            launches = kl["q8_dot"]
+        if (launches > 0) != kv_int8:
+            raise AssertionError(f"lm serve int8={kv_int8}: q8_dot "
+                                 f"launched {launches} times")
+        if kv_int8:
+            _lm_launches["q8_dot"] = launches
         peak = torch.cuda.max_memory_allocated() / 2**30
         finite = bool(torch.isfinite(r.prefill_logits).all()
                       and torch.isfinite(r.step_logits).all())
@@ -3019,7 +3162,7 @@ def lm_serve_phase(card: str) -> dict:
             decode_steps=r.decode_steps,
             decode_ms_per_step=r.decode_ms_per_step,
             decode_tok_s=r.decode_tok_s, peak_gb=peak, finite=True,
-            sample=r.tokens[0, :8].tolist())
+            q8_dot_launches=launches, sample=r.tokens[0, :8].tolist())
     plain, q8 = runs[False], runs[True]
     if not torch.equal(plain.prompts, q8.prompts):
         raise AssertionError("lm: the two runs served other prompts")
@@ -4060,7 +4203,8 @@ def run_cell(card: str, arch_id: str, shape_name: str, variant: str,
     """One cell at its published config and shape on the card: the case
     built from seed 0, one warm-up step, ``CASES_TIMED`` steps timed by
     CUDA events; the paper-ipgc cells count their kernels over the timed
-    steps and equal the same step through the plain twins, exactly."""
+    steps and equal the same step through the plain twins, exactly; the
+    int8 decode variants count ``q8_dot``'s launches."""
     import _case_check as cc
     from repro_torch.launch import steps
 
@@ -4073,10 +4217,18 @@ def run_cell(card: str, arch_id: str, shape_name: str, variant: str,
     out = case.fn(*case.args)                # warm-up
     torch.cuda.synchronize()
     coloring = case.meta["kind"] == "coloring"
-    if coloring:
+    q8 = "int8" in variant
+    if coloring or q8:
         start_counts()
     ms, outs = timed_steps(lambda i: case.fn(*case.args), CASES_TIMED)
     extra = {}
+    if q8:
+        n = _build.KERNEL_LAUNCHES["q8_dot"]
+        if not n:
+            raise AssertionError(f"{arch_id}/{shape_name}/{variant}: "
+                                 "q8_dot never launched")
+        _cells_launches["q8_dot"] = _cells_launches.get("q8_dot", 0) + n
+        extra = dict(q8_dot_launches=n)
     if coloring:
         counts = _build.KERNEL_LAUNCHES.as_dict()
         launches = {k: counts[SOURCES[k][2]] for k in IPGC_KERNELS}
@@ -4117,8 +4269,8 @@ def run_cell(card: str, arch_id: str, shape_name: str, variant: str,
     return row
 
 
-#: the launches of the coloring step's kernels over ``cases.run``'s timed
-#: steps, for the kernels line
+#: the launches of the coloring step's kernels and of ``q8_dot`` over
+#: ``cases.run``'s timed steps, for the kernels line
 _cells_launches: dict = {}
 #: ``cases.run``'s rows, the cells phase 13 holds the dry run to
 _cells_run: list = []
@@ -4440,6 +4592,7 @@ def run_phases(card: str, mark, marks: list, t_start: float,
     mark("kron.build")
     kron_ig = repro_torch.prepare(kron)
     rows = kernel_phase(kron_ig, adaptive_window(kron))
+    q8 = q8_row()
     mark("kernels")
     del kron_ig
     torch.cuda.empty_cache()
@@ -4485,7 +4638,8 @@ def run_phases(card: str, mark, marks: list, t_start: float,
     mark("road.dist")
     default_session().cache.clear()
     torch.cuda.empty_cache()
-    totals = {k: sum(c[k] for c in runs) for k in _build.SOURCES}
+    totals = {SOURCES[k][2]: sum(c[SOURCES[k][2]] for c in runs)
+              for k in COLORING}
     if any(c == 0 for c in totals.values()):
         raise AssertionError(f"a kernel never launched on the path: {totals}")
 
@@ -4522,6 +4676,9 @@ def run_phases(card: str, mark, marks: list, t_start: float,
         row["outlined_launches"] = sum(
             o["launches"][SOURCES[name][2]] for by in outlined.values()
             for o in by.values())
+    q8["launches"] = _lm_launches["q8_dot"]
+    q8["cases_launches"] = _cells_launches.get("q8_dot", 0)
+    rows["q8_dot"] = q8
     reset_peak()
     log(phase="done", seconds=time.perf_counter() - t_start,
         peak_mem_gb=_peak_bytes / 2**30, host_peak_gib=host_peak_gib(),

@@ -16,12 +16,18 @@ and the plain versions ignore it. ``compact`` keeps its own tile and
 Each call goes through ``obs.opcost_hooks.kernel_call``, which does
 nothing but call it unless an op counter runs (``launch/opcost.py``);
 then the call counts as one op of its operands' and outputs' bytes (the
-extension call is no ATen op the counter could see).
+extension call is no ATen op the counter could see), and of the FLOPs by
+type that the wrapper gives (the int8 decode's products).
+
+The int8 decode's two products (``q8_scores``, ``q8_values``) also take
+``meta`` tensors, where the dry run counts the card's path: there they
+return the output's shape and type.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import q8_dot
 from repro_torch.kernels._build import KERNEL_LAUNCHES  # noqa: F401
 from repro_torch.kernels.compact import compact_cuda, compact_plain
 from repro_torch.kernels.conflict import (conflict_cuda,
@@ -159,3 +165,27 @@ def frontier_probe(nbr: torch.Tensor,
     bool (see ``kernels/frontier.py``)."""
     fn = frontier_probe_cuda if _on_cuda(nbr) else frontier_probe_plain
     return kernel_call("frontier", fn, nbr, unvisited)
+
+
+def _q8(route: dict, a: torch.Tensor, cache: torch.Tensor) -> torch.Tensor:
+    """One int8 decode product, by ``route[device type]`` of its rows."""
+    kind = a.device.type
+    if kind not in route:
+        raise ValueError(f"no kernel for tensors on {a.device}")
+    return kernel_call("q8_dot", route[kind], a, cache,
+                       flops=q8_dot.flops(a, cache))
+
+
+def q8_scores(qq: torch.Tensor, k_q: torch.Tensor) -> torch.Tensor:
+    """The int8 decode's scores, exact in int32: qq (B, Hk, G, D) int8,
+    k_q (B, S, Hk, D) int8 -> (B, Hk, G, S) int32 (see
+    ``kernels/q8_dot.py``)."""
+    return _q8({"cuda": q8_dot.scores_cuda, "cpu": q8_dot.scores_plain,
+                "meta": q8_dot.scores_meta}, qq, k_q)
+
+
+def q8_values(pq: torch.Tensor, v_q: torch.Tensor) -> torch.Tensor:
+    """The int8 decode's values, exact in int32: pq (B, Hk, G, S) int8,
+    v_q (B, S, Hk, D) int8 -> (B, Hk, G, D) int32."""
+    return _q8({"cuda": q8_dot.values_cuda, "cpu": q8_dot.values_plain,
+                "meta": q8_dot.values_meta}, pq, v_q)

@@ -112,6 +112,9 @@ _UPLOAD = {aten._to_copy.default, aten.copy_.default}
 _ACCUMULATE = {aten.add.Tensor, aten.add_.Tensor}
 #: the joins of a one-controller mesh form
 _JOIN = {aten.cat.default, aten.stack.default}
+#: overloads whose FLOP formula takes only their leading arguments (the
+#: ``out_dtype`` after a bf16 product's operands)
+_FLOP_ARGS = {aten.bmm.dtype: 2}
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
@@ -224,6 +227,7 @@ class OpCost(TorchDispatchMode):
         self._deferred: list = []
         self._leaves: dict = {}     # id(storage) -> leaf name
         self.leaf_tags: dict = {}
+        self._own_sync: set = set()  # leaves whose reads record their sums
         self._fast: dict = {}
         for t in _arg_tensors(args, []):
             self._adopt(t)
@@ -414,7 +418,8 @@ class OpCost(TorchDispatchMode):
         if not free:
             fn = flop_registry.get(func._overloadpacket)
             if fn is not None:
-                f = float(fn(*args, **kwargs, out_val=out))
+                f = float(fn(*args[:_FLOP_ARGS.get(func, len(args))],
+                             **kwargs, out_val=out))
                 if f:
                     flops[_dtype_of(ins)] = f
             nbytes = self._op_bytes(func, args, ins, keys, outs)
@@ -505,9 +510,10 @@ class OpCost(TorchDispatchMode):
             return func(*args, **kwargs)
         return torch.empty(_broadcast(shapes), dtype=dtype, device="meta")
 
-    def kernel(self, name: str, fn, args, kw):
+    def kernel(self, name: str, fn, args, kw, flops: dict):
         """``kernel_call``'s count: one op of the call's operands' and
-        outputs' bytes, tagged like an op, the ops inside not counted."""
+        outputs' bytes and of ``flops`` ({operand type name: FLOPs}),
+        tagged like an op, the ops inside not counted."""
         ins = _tensors(list(args), [])
         tag, _ = self._tag_of(None, [id(t.untyped_storage()) for t in ins])
         self._opaque += 1
@@ -522,7 +528,7 @@ class OpCost(TorchDispatchMode):
         k["calls"] += 1
         k["bytes"] += nbytes
         self.n_ops += 1
-        self._charge(tag, {}, nbytes)
+        self._charge(tag, flops, nbytes)
         return out
 
     # -- collectives --------------------------------------------------------
@@ -549,6 +555,14 @@ class OpCost(TorchDispatchMode):
             c["by_axes"][key] = np.zeros(self.n)
         c["by_axes"][key] += float(nbytes) * w
 
+    def grad_recorded(self, t: torch.Tensor) -> None:
+        """``t`` was read with its gradient pass's collective recorded
+        (``hooks.collective``'s ``back``): a watched leaf read so gets no
+        ``add_grad_sync``."""
+        name = self._leaves.get(id(t.untyped_storage()))
+        if name is not None:
+            self._own_sync.add(name)
+
     def add_grad_sync(self, params: dict, *, split: "dict | None" = None
                       ) -> None:
         """The gradient sums a multi-process run makes and one controller
@@ -557,11 +571,12 @@ class OpCost(TorchDispatchMode):
         gradient over the axes where they differ, less the axes
         ``split[name]`` lays the leaf out over (the expert weights: their
         FSDP part is the reduce-scatter ``collective`` records in the
-        gradient pass). Counted on every entry."""
+        gradient pass). A leaf whose reads record their own
+        (``grad_recorded``) is left out. Counted on every entry."""
         split = split or {}
         for name, t in _named_leaves(params):
             tags = self.leaf_tags.get(name)
-            if not tags or len(tags) < 2:
+            if not tags or len(tags) < 2 or name in self._own_sync:
                 continue
             differ = set()
             first = dict(next(iter(tags)))

@@ -10,6 +10,14 @@ online-softmax loop over KV chunks, as plain PyTorch ops: scores and the
 running sums in fp32 (the reference's ``preferred_element_type``), the
 probabilities cast to V's type before the PV product. Decode uses
 one-query attention over the cache, in bf16 or int8 (``KVCache``).
+
+The four attention products take the operands' own type with float32
+results, as the reference's dots do: on the card (and on ``meta``, where
+the dry run counts the card's path) a bf16 product is ``aten::bmm.dtype``
+(``_bmm_f32``); on the CPU, which has no such kernel, the products run
+on the operands upcast to float32, exact products of the same values,
+summed in another order. The int8 decode's two products are the
+``q8_dot`` kernel's (``kernels/ops.py``), exact in int32.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.obs import opcost_hooks
 
 _NEG_INF = float("-inf")
@@ -50,6 +59,74 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(dt)
 
 
+class _MixedBmm(torch.autograd.Function):
+    """A bf16 (or fp16) batched product with a float32 result,
+    ``aten::bmm.dtype``, which has no derivative of its own. The gradient
+    is the reference's: each transposed product takes the float32
+    cotangent and the other operand upcast, in float32, and is cast to its
+    operand's type (``jax.grad`` of the reference's ``preferred_element_type``
+    dot)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(g, b.float().transpose(1, 2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.bmm(a.float().transpose(1, 2), g).to(b.dtype)
+        return ga, gb
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether the products of ``t`` take the card's path: on CUDA, and on
+    ``meta``, where the dry run counts what the card runs."""
+    return t.device.type != "cpu"
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The card's product (n, i, k) x (n, k, j) -> float32 (n, i, j): in
+    the operands' type when both are bf16 or fp16 (through ``_MixedBmm``
+    only where a gradient is taken: a decode step skips its host cost),
+    else in float32."""
+    if a.dtype != b.dtype or a.dtype not in (torch.bfloat16, torch.float16):
+        return torch.bmm(a.float(), b.float())
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _MixedBmm.apply(a, b)
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+#: a cache view of at most this many bytes is copied into one (B * Hk)
+#: batch for a single product: at a serving batch's short cache the copy
+#: takes the card microseconds, less than the host's dispatch of the
+#: products a batch row or a head
+_COPY_BYTES = 16 << 20
+
+
+def _cache_product(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a (B, Hk, i, k) x c (B, Hk, k, j) -> float32 (B, Hk, i, j), ``c`` a
+    view of the cache. The (B, Hk) batch of the view is no single stride:
+    up to ``_COPY_BYTES`` the view is flattened (a copy in the cache's
+    type) for one product; past it, where the copy would cost the cache's
+    bytes again, this is one product a batch row (over its heads) or a head
+    (over the rows), whichever axis is shorter, each reading its strided
+    slices of the cache in place."""
+    b, hk = a.shape[:2]
+    if min(b, hk) > 1 and c.numel() * c.element_size() <= _COPY_BYTES:
+        out = _bmm_f32(a.reshape(b * hk, *a.shape[2:]),
+                       c.reshape(b * hk, *c.shape[2:]))
+        return out.view(b, hk, *out.shape[1:])
+    if b <= hk:
+        return torch.stack([_bmm_f32(a[i], c[i]) for i in range(b)])
+    return torch.stack([_bmm_f32(a[:, h], c[:, h]) for h in range(hk)],
+                       dim=1)
+
+
 def _chunk_attn_block(q, k, v, carry, q_pos, k_pos, causal: bool,
                       scale: float):
     """One (q-chunk, k-chunk) online-softmax update.
@@ -57,7 +134,15 @@ def _chunk_attn_block(q, k, v, carry, q_pos, k_pos, causal: bool,
     q (B, cq, Hk, G, D); k/v (B, ck, Hk, D); carry = (m, l, acc), fp32.
     """
     m, l, acc = carry
-    s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
+    b, cq, hk, g, d = q.shape
+    ck = k.shape[1]
+    card = _on_card(q)
+    if card:
+        s = _bmm_f32(q.permute(0, 2, 3, 1, 4).reshape(b * hk, g * cq, d),
+                     k.permute(0, 2, 3, 1).reshape(b * hk, d, ck)
+                     ).reshape(b, hk, g, cq, ck) * scale
+    else:
+        s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
     if causal:
         mask = q_pos[:, None] >= k_pos[None, :]          # (cq, ck)
         s = torch.where(mask, s, _NEG_INF)
@@ -70,7 +155,13 @@ def _chunk_attn_block(q, k, v, carry, q_pos, k_pos, causal: bool,
     corr = torch.exp(torch.where(fin, m - m_safe, _NEG_INF))
     corr = torch.where(fin, corr, 0.0)
     l_new = l * corr + p.sum(dim=-1)
-    pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), v.float())
+    if card:
+        pv = _bmm_f32(p.to(v.dtype).reshape(b * hk, g * cq, ck),
+                      v.permute(0, 2, 1, 3).reshape(b * hk, ck, d)
+                      ).reshape(b, hk, g, cq, d)
+    else:
+        pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(),
+                          v.float())
     acc_new = acc * corr[..., None] + pv
     return m_new, l_new, acc_new
 
@@ -151,10 +242,17 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     g = h // hk
     scale = scale if scale is not None else d ** -0.5
     qg = q.reshape(b, hk, g, d)
-    s = torch.einsum("bhgd,bshd->bhgs", qg.float(), k_cache.float()) * scale
-    p = _masked_softmax(s, cache_len)
-    out = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(),
-                       v_cache.float())
+    if _on_card(q):
+        s = _cache_product(qg, k_cache.permute(0, 2, 3, 1)) * scale
+        p = _masked_softmax(s, cache_len)
+        out = _cache_product(p.to(v_cache.dtype),
+                             v_cache.permute(0, 2, 1, 3))
+    else:
+        s = torch.einsum("bhgd,bshd->bhgs", qg.float(),
+                         k_cache.float()) * scale
+        p = _masked_softmax(s, cache_len)
+        out = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(),
+                           v_cache.float())
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
@@ -210,14 +308,6 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
     return (q.float() * scale.float()[..., None]).to(dtype)
 
 
-def _int_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """An int8 x int8 contraction, exact, as the reference's int32 dot
-    gives it: the products are summed in float64 (exact below 2^53; the
-    card has no int8 ``einsum``) and rounded to fp32, as the reference's
-    ``int32 -> fp32`` conversion rounds."""
-    return torch.einsum(eq, a.double(), b.double()).float()
-
-
 def decode_attention_q8(q: torch.Tensor, k_q: torch.Tensor,
                         k_scale: torch.Tensor, v_q: torch.Tensor,
                         v_scale: torch.Tensor, cache_len: torch.Tensor, *,
@@ -226,6 +316,8 @@ def decode_attention_q8(q: torch.Tensor, k_q: torch.Tensor,
     attention weights are quantized to int8 too, the two contractions are
     int8 x int8 with an fp32 rescale on the small score and output
     tensors (the reference's ~1e-2 relative error, a KIVI-class trade).
+    The contractions are ``ops.q8_scores``/``ops.q8_values``: int32 sums,
+    converted to fp32 as the reference's ``int32 -> fp32`` does.
 
     q (B,1,H,D); k_q/v_q (B,S,Hk,D) int8; scales (B,S,Hk) fp16.
     """
@@ -234,12 +326,12 @@ def decode_attention_q8(q: torch.Tensor, k_q: torch.Tensor,
     g = h // hk
     sc = scale if scale is not None else d ** -0.5
     qq, qs = quantize_kv(q.reshape(b, hk, g, d))          # int8 query
-    s_int = _int_einsum("bhgd,bshd->bhgs", qq, k_q)
+    s_int = ops.q8_scores(qq, k_q).float()
     s = (s_int * qs.float()[..., None]
          * k_scale.float().permute(0, 2, 1)[:, :, None, :] * sc)
     p = _masked_softmax(s, cache_len)
     # fold v's per-position scale into p, then quantize p rows to int8
     pw = p * v_scale.float().permute(0, 2, 1)[:, :, None, :]
     pq, ps = quantize_kv(pw)
-    o = _int_einsum("bhgs,bshd->bhgd", pq, v_q) * ps.float()[..., None]
+    o = ops.q8_values(pq, v_q).float() * ps.float()[..., None]
     return o.reshape(b, 1, h, d).to(q.dtype)

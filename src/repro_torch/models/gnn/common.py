@@ -48,7 +48,13 @@ def scatter_sum(values: torch.Tensor, dst: torch.Tensor,
                 n_nodes: int) -> torch.Tensor:
     """Edge values (E, ...) -> node sums (N, ...). Pad rows land in the
     trash segment (index n_nodes) and are dropped."""
-    return _segments(values, n_nodes).index_add(0, dst, values)[:n_nodes]
+    return segment_sums(values, dst, n_nodes)[:n_nodes]
+
+
+def segment_sums(values: torch.Tensor, dst: torch.Tensor,
+                 n_nodes: int) -> torch.Tensor:
+    """``scatter_sum`` with the trash segment kept: (N + 1, ...)."""
+    return _segments(values, n_nodes).index_add(0, dst, values)
 
 
 def scatter_mean(values: torch.Tensor, dst: torch.Tensor,

@@ -135,15 +135,37 @@ def _so2_conv(xr: torch.Tensor, p: dict, i: int, cfg: EqV2Config
         pos, neg = _m_indices(cfg.l_max, m)
         xp = xr[:, pos, :].reshape(e, -1)
         xn = xr[:, neg, :].reshape(e, -1)
-        wr, wi = p[f"so2_r{m}_{i}"], p[f"so2_i{m}_{i}"]
-        out[:, pos, :] = (xp @ wr - xn @ wi).reshape(e, len(pos), c)
-        out[:, neg, :] = (xp @ wi + xn @ wr).reshape(e, len(neg), c)
+        wr, wi = f"so2_r{m}_{i}", f"so2_i{m}_{i}"    # read at each product
+        out[:, pos, :] = (xp @ p[wr] - xn @ p[wi]).reshape(e, len(pos), c)
+        out[:, neg, :] = (xp @ p[wi] + xn @ p[wr]).reshape(e, len(neg), c)
     return out
+
+
+def _replicated(t: torch.Tensor, axes: tuple) -> torch.Tensor:
+    """``t``, which every edge shard on ``axes`` holds whole, read by one
+    shard: the op counter records the all-reduce of its partial gradient
+    over ``axes`` that the gradient pass makes (``collective``'s
+    ``back``). Each read is one such all-reduce, as in the reference's
+    compiled step, whose partitioner sums the gradient of each product
+    that reads a replicated weight with the sharded edges on its own."""
+    return opcost_hooks.collective(t, None, axes, back="all-reduce")
+
+
+class _ShardReads:
+    """An edge shard's weights: each ``[key]`` is one ``_replicated``
+    read."""
+
+    def __init__(self, p: dict, axes: tuple):
+        self.p, self.axes = p, axes
+
+    def __getitem__(self, key: str) -> torch.Tensor:
+        return _replicated(self.p[key], self.axes)
 
 
 def _edge_messages(h, q, p, i, part, cfg: EqV2Config, n: int):
     """One part of an edge chunk: its attention-weighted messages scattered
-    into (N, S, C) and its weights into (N, C), on the part's device."""
+    into (N + 1, S, C) and its weights into (N + 1, C), the trash row
+    last, on the part's device."""
     s_c, d_c, u_c, r_c, o_c = part
     hd = cfg.channels // cfg.n_heads
     valid = o_c[:, None]
@@ -161,8 +183,8 @@ def _edge_messages(h, q, p, i, part, cfg: EqV2Config, n: int):
     msg_h = msg.reshape(-1, cfg.s_dim, cfg.n_heads, hd)
     msg_w = (msg_h * a[:, None, :, None]).reshape(-1, cfg.s_dim,
                                                   cfg.channels)
-    return (g.scatter_sum(msg_w, d_c, n),
-            g.scatter_sum(a.repeat_interleave(hd, dim=-1), d_c, n))
+    return (g.segment_sums(msg_w, d_c, n),
+            g.segment_sums(a.repeat_interleave(hd, dim=-1), d_c, n))
 
 
 def _layer(x, p, i, edges, cfg: EqV2Config, devices=None, coords=None):
@@ -173,7 +195,11 @@ def _layer(x, p, i, edges, cfg: EqV2Config, devices=None, coords=None):
     mesh coordinates ``coords``), each chunk is split into one part a
     device, each part's messages are computed there, and the partial
     scatters are summed on ``x``'s device (the all-reduce of a
-    multi-process run).
+    multi-process run, of the (N + 1)-row sums, as the reference's
+    partitioner places it before the trash row is dropped). The op
+    counter also records the gradient pass's all-reduces of what each
+    part reads whole: the normed features, the queries and each product's
+    weight (``_replicated``).
     """
     n = x.shape[0]
     h = _eq_norm(x, p[f"norm_{i}"], cfg.l_max)
@@ -198,14 +224,15 @@ def _layer(x, p, i, edges, cfg: EqV2Config, devices=None, coords=None):
             if coords is None:
                 num_p, den_p = _edge_messages(h_d, q_d, p_d, i, part, cfg, n)
             else:
+                axes = cfg.edge_shard_axes
                 with opcost_hooks.shard(coords[j]):
                     num_p, den_p = (
-                        opcost_hooks.collective(t, "all-reduce",
-                                                cfg.edge_shard_axes)
-                        for t in _edge_messages(h_d, q_d, p_d, i, part, cfg,
-                                                n))
-            num = num + num_p.to(x.device)
-            den = den + den_p.to(x.device)
+                        opcost_hooks.collective(t, "all-reduce", axes)
+                        for t in _edge_messages(
+                            _replicated(h_d, axes), _replicated(q_d, axes),
+                            _ShardReads(p_d, axes), i, part, cfg, n))
+            num = num + num_p[:n].to(x.device)
+            den = den + den_p[:n].to(x.device)
     # a node no valid edge reaches has den = num = 0 and agg = 0, as in
     # the reference; the where keeps the 1e-9 floor's 1e9 out of its
     # gradient, which an edge masked out (a self loop) into such a node
@@ -224,6 +251,34 @@ def _layer(x, p, i, edges, cfg: EqV2Config, devices=None, coords=None):
     return x + u @ p[f"ffn_out_{i}"]
 
 
+def _embed_edges(params, rbf, edge_ok, edge_dst, n: int, cfg: EqV2Config,
+                 devices=None, coords=None) -> torch.Tensor:
+    """The edge embedding's node sums (N, C). With ``devices`` (at mesh
+    coordinates ``coords``) the edges are split into one part a device, as
+    the layers split a chunk: the reference's constraint on its one chunk
+    reaches the unchunked edge arrays through the reshape, so its
+    partitioner shards this sum too (with more chunks it does not, and
+    neither does the port)."""
+    if devices is None:
+        return g.scatter_sum(
+            F.silu(rbf @ params["rbf0"] + params["rbf0b"]) * edge_ok[:, None],
+            edge_dst, n)
+    axes = cfg.edge_shard_axes
+    total = None
+    for j, (dev, (r, ok, dst)) in enumerate(zip(devices, zip(
+            *(a.tensor_split(len(devices)) for a in (rbf, edge_ok,
+                                                     edge_dst))))):
+        p = _ShardReads({k: params[k].to(dev) for k in ("rbf0", "rbf0b")},
+                        axes)
+        with opcost_hooks.shard(coords[j]):
+            part = opcost_hooks.collective(g.segment_sums(
+                F.silu(r.to(dev) @ p["rbf0"] + p["rbf0b"])
+                * ok.to(dev)[:, None], dst.to(dev), n), "all-reduce", axes)
+        part = part[:n].to(rbf.device)
+        total = part if total is None else total + part
+    return total
+
+
 def forward(params, batch: g.GraphBatch, cfg: EqV2Config, *,
             mesh=None) -> torch.Tensor:
     """Returns per-graph energies.
@@ -232,7 +287,8 @@ def forward(params, batch: g.GraphBatch, cfg: EqV2Config, *,
     devices of ``mesh`` (a ``launch.mesh.DeviceMesh``) along those axes,
     the reference's sharding constraint on the chunks: each part's
     messages on its own device, the partial scatters summed on the
-    parameters' device. Without a mesh, edge shard axes are refused (the
+    parameters' device. With one chunk the edge embedding is split so too
+    (``_embed_edges``). Without a mesh, edge shard axes are refused (the
     reference's constraint needs a mesh in context)."""
     devices = coords = None
     if cfg.edge_shard_axes:
@@ -257,14 +313,14 @@ def forward(params, batch: g.GraphBatch, cfg: EqV2Config, *,
                              device=dist.device)
     gamma = 1.0 / (centers[1] - centers[0]) ** 2
     rbf = torch.exp(-gamma * (dist[:, None] - centers[None, :]) ** 2)
-    x0 = params["embed"][species] + g.scatter_sum(
-        F.silu(rbf @ params["rbf0"] + params["rbf0b"]) * edge_ok[:, None],
-        batch.edge_dst, n)
+    n_chunks = max(e_total // min(cfg.edge_chunk, e_total), 1)
+    assert e_total % n_chunks == 0, (e_total, n_chunks)
+    x0 = params["embed"][species] + _embed_edges(
+        params, rbf, edge_ok, batch.edge_dst, n, cfg,
+        devices if n_chunks == 1 else None, coords)
     x = torch.cat([x0[:, None, :],
                    x0.new_zeros((n, cfg.s_dim - 1, cfg.channels))], dim=1)
 
-    n_chunks = max(e_total // min(cfg.edge_chunk, e_total), 1)
-    assert e_total % n_chunks == 0, (e_total, n_chunks)
     edges = list(zip(*(a.chunk(n_chunks) for a in
                        (batch.edge_src, batch.edge_dst, unit, rbf, edge_ok))))
     for i in range(cfg.n_layers):

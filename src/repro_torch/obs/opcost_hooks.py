@@ -41,8 +41,9 @@ def collective(t: torch.Tensor, kind: "str | None", axes,
     None: a tensor every shard on ``axes`` holds already); when ``t``
     takes a gradient and ``back`` is given, the gradient pass's collective
     ``back`` of the gradient's bytes is recorded for the same shard (an
-    all-gather's reduce-scatter, a replicated input's all-reduce). Returns
-    ``t``."""
+    all-gather's reduce-scatter, a replicated input's all-reduce), and a
+    parameter leaf read so is left to these records (``OpCost``'s
+    ``add_grad_sync`` adds nothing for it). Returns ``t``."""
     c = active()
     if c is None:
         return t
@@ -50,6 +51,7 @@ def collective(t: torch.Tensor, kind: "str | None", axes,
         c.record(kind, t.numel() * t.element_size(), axes)
     if back is None or not (t.requires_grad and torch.is_grad_enabled()):
         return t
+    c.grad_recorded(t)
     return _Back.apply(t, c, back, tuple(axes), c.context)
 
 
@@ -80,11 +82,13 @@ def recompute_context():
     return contextlib.nullcontext(), c.restore(c.context)
 
 
-def kernel_call(name: str, fn, *args, **kw):
+def kernel_call(name: str, fn, *args, flops: "dict | None" = None, **kw):
     """``fn(*args, **kw)``, one call of a kernel wrapper: counted as one op
     of its tensor operands' and outputs' bytes when a counter runs (the
-    ATen ops inside are not counted)."""
+    ATen ops inside are not counted), and of ``flops`` ({operand type
+    name: FLOPs}, e.g. ``{"int8": n}``) where the kernel's products are
+    FLOPs the counter should price."""
     c = active()
     if c is None:
         return fn(*args, **kw)
-    return c.kernel(name, fn, args, kw)
+    return c.kernel(name, fn, args, kw, flops or {})

@@ -8,7 +8,10 @@ on the CPU; the LM serving path's default device; the LM training path
 default device); the GNN and DLRM models (a smoke step of each family, the
 sampler and ``RecsysPipeline`` card = CPU, the default device); the step
 builders' cases (``launch/steps.py``: each family's case at smoke size
-card = CPU, the coloring case's kernels, the default device).
+card = CPU, the coloring case's kernels, the default device); the int8
+decode's ``q8_dot`` against its plain twin (exactly, also where the int32
+sums wrap), and the attention products on bf16 operands against their
+float32 path (values and a ``flash_attention`` gradient).
 Needs a
 CUDA device and nvcc; skips without a device. Imports no JAX, so it runs
 where only PyTorch is installed:
@@ -996,3 +999,96 @@ def test_card_cases_default_to_the_card(dev):
     case = steps.build_case("dlrm-rm2", "serve_p99")
     assert case.args[1].device.type == "cuda"
     assert case.fn(*case.args).shape == (512,)
+
+
+# --- the int8 decode's kernel and the bf16 attention products -----------------
+
+#: (B, S, Hk, G, D): smoke shapes, full-width heads (Minitron, Qwen3,
+#: Gemma, Nemotron), G past the kernel's 16 rows a pass, a tail of S
+Q8_SHAPES = ((2, 9, 2, 4, 8), (1, 4099, 8, 3, 128), (8, 96, 4, 8, 128),
+             (1, 1000, 16, 1, 256), (1, 777, 8, 12, 192), (3, 77, 2, 20, 32))
+
+
+@pytest.mark.parametrize("shape", Q8_SHAPES)
+@pytest.mark.parametrize("fill", [None, 127])
+def test_q8_dot_matches_plain(dev, shape, fill):
+    """Exactly, random and at the int8 extremes; one scores launch and one
+    values launch a pass of 16 query rows."""
+    from repro_torch.kernels import q8_dot
+    b, s, hk, g, d = shape
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+
+    def rnd(*sh):
+        if fill is not None:
+            return torch.full(sh, fill, dtype=torch.int8, device=dev)
+        return torch.randint(-127, 128, sh, generator=gen, device=dev,
+                             dtype=torch.int16).to(torch.int8)
+
+    qq, k, pq, v = rnd(b, hk, g, d), rnd(b, s, hk, d), rnd(b, hk, g, s), \
+        rnd(b, s, hk, d)
+    before = _build.KERNEL_LAUNCHES["q8_dot"]
+    got = (ops.q8_scores(qq, k), ops.q8_values(pq, v))
+    assert _build.KERNEL_LAUNCHES["q8_dot"] - before == 1 + -(-g // 16)
+    assert torch.equal(got[0], q8_dot.scores_plain(qq, k))
+    assert torch.equal(got[1], q8_dot.values_plain(pq, v))
+
+
+def test_q8_values_wrap_as_the_plain_twin(dev):
+    """127 * 127 * 140,000 passes 2^31: the int32 sums wrap alike."""
+    from repro_torch.kernels import q8_dot
+    s = 140_000
+    pq = torch.full((1, 8, 3, s), 127, dtype=torch.int8, device=dev)
+    v = torch.full((1, s, 8, 128), -127, dtype=torch.int8, device=dev)
+    got = ops.q8_values(pq, v)
+    assert torch.equal(got, q8_dot.values_plain(pq, v))
+    assert int(got[0, 0, 0, 0]) == (-127 * 127 * s + 2**31) % 2**32 - 2**31
+
+
+#: a bf16 product against its float32 twin: the products of two bf16
+#: values are exact in float32 and only the order of the sums differs, but
+#: the float32 path keeps the float32 probabilities where the card's casts
+#: them to bf16 (the reference's ``p.astype(v.dtype)``), 2^-9 relative a
+#: term; outputs are compared in bf16, one more rounding. About twice the
+#: largest reading of these comparisons on an H100 80GB HBM3 at 700 W: the
+#: least rtol = atol that passes was 7.8e-4 / 2.4e-3 (decode, b = 1 / 3)
+#: and 2.6e-3 / 3.0e-3 (flash)
+ATTN_BF16_TOL = dict(rtol=6e-3, atol=6e-3)
+#: the gradients' relative RMS against the float32 path's: about twice the
+#: readings there, 3.0e-3, 3.1e-3 and 2.3e-3 (q, k, v)
+ATTN_GRAD_REL = 6e-3
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_attention_bf16_products_match_float32(dev, b):
+    from repro_torch.models import attention as tatt
+    gen = torch.Generator(device=dev).manual_seed(b)
+    q, k, v = (torch.randn(sh, generator=gen, device=dev)
+               for sh in ((b, 256, 8, 64), (b, 256, 2, 64), (b, 256, 2, 64)))
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    q32, k32, v32 = qb.float(), kb.float(), vb.float()
+    cl = torch.tensor([256, 100, 7][:b], device=dev)
+    torch.testing.assert_close(
+        tatt.decode_attention(qb[:, :1], kb, vb, cl).float(),
+        tatt.decode_attention(q32[:, :1], k32, v32, cl), **ATTN_BF16_TOL)
+    kw = dict(q_chunk=64, k_chunk=128)
+    torch.testing.assert_close(
+        tatt.flash_attention(qb, kb, vb, **kw).float(),
+        tatt.flash_attention(q32, k32, v32, **kw), **ATTN_BF16_TOL)
+
+
+def test_flash_attention_bf16_gradient(dev):
+    """The gradient through the bf16 products (``_MixedBmm``, recomputed
+    under the checkpoints): finite, bf16, within ``ATTN_GRAD_REL`` of the
+    float32 path's."""
+    from repro_torch.models import attention as tatt
+    gen = torch.Generator(device=dev).manual_seed(0)
+    base = [torch.randn(sh, generator=gen, device=dev).bfloat16()
+            for sh in ((2, 256, 8, 64), (2, 256, 2, 64), (2, 256, 2, 64))]
+    grads = {}
+    for dt in (torch.bfloat16, torch.float32):
+        leaves = [t.to(dt).requires_grad_() for t in base]
+        o = tatt.flash_attention(*leaves, q_chunk=64, k_chunk=128)
+        grads[dt] = torch.autograd.grad(o.float().pow(2).sum(), leaves)
+    for a, w in zip(grads[torch.bfloat16], grads[torch.float32]):
+        assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all())
+        assert float((a.float() - w).norm() / w.norm()) <= ATTN_GRAD_REL

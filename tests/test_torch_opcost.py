@@ -350,3 +350,47 @@ def test_collective_and_its_gradient_pass():
     for kind in ("all-gather", "reduce-scatter", "all-reduce"):
         assert list(c.coll[kind]["bytes"]) == [0, nbytes], kind
         assert list(c.coll[kind]["count"]) == [0, 1], kind
+
+
+def test_kernel_call_flops_by_type():
+    """``kernel_call``'s ``flops`` are charged by type beside the call's
+    bytes (the int8 decode's products as int8); a call that gives none, as
+    the coloring kernels' do, counts no FLOPs."""
+    a = torch.zeros(4, 8, dtype=torch.int8)
+    c = opcost.OpCost(args=(a,), on_cpu=True)
+    with c:
+        hooks.kernel_call("k", lambda t: t.to(torch.int32), a,
+                          flops={"int8": 64})
+        hooks.kernel_call("j", lambda t: t + 1, a)
+    r = c.result()
+    assert r["flops_by_dtype"] == {"int8": 64.0} and r["flops"] == 64
+    assert r["kernels"]["k"] == {"calls": 1, "bytes": 32.0 + 128.0}
+    assert r["kernels"]["j"] == {"calls": 1, "bytes": 64.0}
+
+
+def test_leaves_read_with_their_gradient_collective():
+    """A weight that two shards read through ``collective(w, None, axes,
+    back="all-reduce")`` gets that all-reduce, one a read for the shard
+    that reads it, and no ``add_grad_sync``; one they read plainly gets
+    ``add_grad_sync``'s, on every entry."""
+    mesh = make_mesh((2,), ("data",), "meta")
+    p = {"own": torch.zeros(4, 4, device="meta", requires_grad=True),
+         "plain": torch.zeros(4, 4, device="meta", requires_grad=True)}
+    x = torch.zeros(3, 4, device="meta")
+
+    def fn(p, x):
+        out = []
+        for i in range(2):
+            with hooks.shard({"data": i}):
+                w = hooks.collective(p["own"], None, ("data",),
+                                     back="all-reduce")
+                out.append((x @ w @ p["plain"]).sum() + (x @ w).sum())
+        return torch.autograd.grad(out[0] + out[1], list(p.values()))
+
+    r = opcost.count(fn, (p, x), mesh=mesh, params=p)[1]["collectives"]
+    nbytes = 4 * 4 * F32
+    # a device: its shard's read of "own", and "plain"'s sum
+    assert r["all-reduce"]["count"] == 2
+    assert r["all-reduce"]["bytes"] == 2 * nbytes
+    bare = opcost.count(fn, (p, x), mesh=mesh)[1]["collectives"]
+    assert bare["all-reduce"]["count"] == 1
