@@ -83,6 +83,11 @@ class ColoringResult:
     # moved per shard
     exchange_trace: str = ""
     exchange_bytes: list = dataclasses.field(default_factory=list)
+    # the obs.Trace the run's spans went to (a traced run's, the ambient
+    # one, or a run-local one while torch's profiler records); None when
+    # spans were off
+    spans: "Trace | None" = dataclasses.field(default=None, repr=False,
+                                              compare=False)
 
 
 def resolve_plan(g, layout):

@@ -28,6 +28,11 @@ scatters (``kernels/csr_segment.py``).
 Every step is shape-static and reads nothing back to the host, so the
 Pipe's ``count`` read is the only synchronisation per iteration. The steps
 never write to their inputs.
+
+The four ELL steps run each phase inside a ``step_span`` (``ipgc.hub``,
+``ipgc.state``, ``ipgc.assign``, ``ipgc.resolve``, ``ipgc.compact``; the
+schema is ``obs/trace.py``'s): a profiler range and a (device-timed)
+span while spans are on, one lookup each while they are off.
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ from repro_torch.kernels import csr_segment as kcsr
 from repro_torch.kernels import ops
 from repro_torch.kernels.csr_segment import flags_at
 from repro_torch.obs.metrics import default_registry
+from repro_torch.obs.trace import step_span
 
 NO_COLOR = int(csr.NO_COLOR)
 PAD_COLOR = int(csr.PAD_COLOR)
@@ -569,28 +575,38 @@ def dense_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
                          sparse=False)
     n = ig.n_nodes
     active = wl.mask
-    row_ids = torch.arange(n, dtype=torch.int32, device=colors.device)
     has_hubs = _has_hubs(ig, force_hub)
 
     # --- assign (speculative windowed mex, gathering in the kernel) ---
-    _count_kernel_gather()
-    hub_forb = _hub_forbidden(ig, colors, base, window) if has_hubs else None
-    new_c, new_base, newly = _mex_rows(ig, colors, None, base, active,
-                                       colors[:n], hub_forb, window,
-                                       tile_rows)
-    colors2 = torch.cat([new_c, colors[n:]])
+    hub_forb = None
+    if has_hubs:
+        with step_span("ipgc.hub", part="forbidden"):
+            hub_forb = _hub_forbidden(ig, colors, base, window)
+    with step_span("ipgc.assign"):
+        _count_kernel_gather()
+        new_c, new_base, newly = _mex_rows(ig, colors, None, base, active,
+                                           colors[:n], hub_forb, window,
+                                           tile_rows)
+    with step_span("ipgc.state"):
+        colors2 = torch.cat([new_c, colors[n:]])
 
     # --- resolve (uncolor exactly one endpoint per conflict edge) ---
-    lose = _lose_rows(ig, None, row_ids, colors2, newly, tile_rows)
+    with step_span("ipgc.resolve"):
+        row_ids = torch.arange(n, dtype=torch.int32, device=colors.device)
+        lose = _lose_rows(ig, None, row_ids, colors2, newly, tile_rows)
     if has_hubs:
-        newly_full = torch.cat([newly, newly.new_zeros(1)])
-        lose = lose | _hub_lose(ig, colors2, newly_full)[ig.hub_slot]
-    colors3 = torch.cat([torch.where(lose, NO_COLOR, new_c), colors[n:]])
+        with step_span("ipgc.hub", part="lose"):
+            newly_full = torch.cat([newly, newly.new_zeros(1)])
+            lose = lose | _hub_lose(ig, colors2, newly_full)[ig.hub_slot]
+    with step_span("ipgc.state"):
+        colors3 = torch.cat([torch.where(lose, NO_COLOR, new_c),
+                             colors[n:]])
 
     # --- maintain the worklist (also in dense mode: the paper's point) ---
-    still = lose | (active & ~newly)
-    LAUNCH_COUNTS["compact"] += 1
-    items, count = compact_mask(still, wl.capacity, n)
+    with step_span("ipgc.compact"):
+        still = lose | (active & ~newly)
+        LAUNCH_COUNTS["compact"] += 1
+        items, count = compact_mask(still, wl.capacity, n)
     return colors3, new_base, Worklist(mask=still, items=items, count=count)
 
 
@@ -608,39 +624,49 @@ def sparse_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
                          sparse=True)
     n = ig.n_nodes
     items = wl.items
-    valid = items < n
-    safe = torch.where(valid, items, 0)
-    target = torch.where(valid, items, n)        # invalid lanes -> slot n
+    has_hubs = _has_hubs(ig, force_hub)
 
     # --- assign ---
-    has_hubs = _has_hubs(ig, force_hub)
-    _count_kernel_gather()        # the items' neighbours, in the kernel
-    base_rows = base[safe]
-    hub_forb = _hub_forbidden(ig, colors, base, window) if has_hubs else None
-    new_c, new_base_rows, newly = _mex_rows(ig, colors, items, base_rows,
-                                            valid, colors[safe], hub_forb,
-                                            window, tile_rows)
-    colors2 = _set_rows(colors, target, torch.where(valid, new_c, PAD_COLOR))
-    colors2[n:].fill_(PAD_COLOR)
-    base2 = _set_rows_drop(base, target, new_base_rows)
+    hub_forb = None
+    if has_hubs:
+        with step_span("ipgc.hub", part="forbidden"):
+            hub_forb = _hub_forbidden(ig, colors, base, window)
+    with step_span("ipgc.assign"):
+        valid = items < n
+        safe = torch.where(valid, items, 0)
+        target = torch.where(valid, items, n)    # invalid lanes -> slot n
+        _count_kernel_gather()        # the items' neighbours, in the kernel
+        base_rows = base[safe]
+        new_c, new_base_rows, newly = _mex_rows(ig, colors, items, base_rows,
+                                                valid, colors[safe],
+                                                hub_forb, window, tile_rows)
+    with step_span("ipgc.state"):
+        colors2 = _set_rows(colors, target,
+                            torch.where(valid, new_c, PAD_COLOR))
+        colors2[n:].fill_(PAD_COLOR)
+        base2 = _set_rows_drop(base, target, new_base_rows)
 
     # --- resolve ---
-    lose = _lose_rows(ig, items, target, colors2, newly, tile_rows)
+    with step_span("ipgc.resolve"):
+        lose = _lose_rows(ig, items, target, colors2, newly, tile_rows)
     if has_hubs:
-        newly_full = _set_rows(torch.zeros(n + 1, dtype=torch.bool,
-                                           device=colors.device),
-                               torch.where(newly, items, n), newly)
-        hub_l = _hub_lose(ig, colors2, newly_full)
-        lose = lose | (hub_l[ig.hub_slot[safe]] & valid)
-    colors3 = _set_rows(colors2, torch.where(lose, items, n),
-                        torch.full_like(items, NO_COLOR))
-    colors3[n:].fill_(PAD_COLOR)
+        with step_span("ipgc.hub", part="lose"):
+            newly_full = _set_rows(torch.zeros(n + 1, dtype=torch.bool,
+                                               device=colors.device),
+                                   torch.where(newly, items, n), newly)
+            hub_l = _hub_lose(ig, colors2, newly_full)
+            lose = lose | (hub_l[ig.hub_slot[safe]] & valid)
+    with step_span("ipgc.state"):
+        colors3 = _set_rows(colors2, torch.where(lose, items, n),
+                            torch.full_like(items, NO_COLOR))
+        colors3[n:].fill_(PAD_COLOR)
+        still = lose | (valid & ~newly)
+        mask = _set_rows_drop(wl.mask, target, still)
 
     # --- maintain the worklist in O(C) ---
-    still = lose | (valid & ~newly)
-    LAUNCH_COUNTS["compact"] += 1
-    new_items, count = compact_items(items, still, n)
-    mask = _set_rows_drop(wl.mask, target, still)
+    with step_span("ipgc.compact"):
+        LAUNCH_COUNTS["compact"] += 1
+        new_items, count = compact_items(items, still, n)
     return colors3, base2, Worklist(mask=mask, items=new_items, count=count)
 
 
@@ -666,20 +692,27 @@ def fused_dense_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
                          sparse=False)
     n = ig.n_nodes
     active = wl.mask
-    row_ids = torch.arange(n, dtype=torch.int32, device=colors.device)
-    cu = colors[:n]
-    pu = ig.priority[:n]
-    pending = active & (cu >= 0)
+    has_hubs = _has_hubs(ig, force_hub)
+    if has_hubs:
+        with step_span("ipgc.hub", part="forbidden"):
+            hub_forb = _hub_forbidden(ig, colors, base, window)
+    with step_span("ipgc.compact"):
+        row_ids = torch.arange(n, dtype=torch.int32, device=colors.device)
+        cu = colors[:n]
+        pu = ig.priority[:n]
+        pending = active & (cu >= 0)
     hub_tables = None
-    if _has_hubs(ig, force_hub):
-        pending_full = torch.cat([pending, pending.new_zeros(1)])
-        hub_tables = (_hub_forbidden(ig, colors, base, window),
-                      _hub_lose(ig, colors, pending_full))
+    if has_hubs:
+        with step_span("ipgc.hub", part="lose"):
+            pending_full = torch.cat([pending, pending.new_zeros(1)])
+            hub_tables = (hub_forb, _hub_lose(ig, colors, pending_full))
     # the one gather, inside the kernel
-    new_c, new_base, still, items, count = _fused_compact_rows(
-        ig, colors, None, base, cu, pu, row_ids, active, pending,
-        hub_tables, window, wl.capacity, tile_rows)
-    colors2 = torch.cat([new_c, colors[n:]])
+    with step_span("ipgc.compact"):
+        new_c, new_base, still, items, count = _fused_compact_rows(
+            ig, colors, None, base, cu, pu, row_ids, active, pending,
+            hub_tables, window, wl.capacity, tile_rows)
+    with step_span("ipgc.state"):
+        colors2 = torch.cat([new_c, colors[n:]])
     return colors2, new_base, Worklist(mask=still, items=items, count=count)
 
 
@@ -693,31 +726,37 @@ def fused_sparse_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
                          sparse=True)
     n = ig.n_nodes
     items = wl.items
-    valid = items < n
-    safe = torch.where(valid, items, 0)
-    ids = torch.where(valid, items, n)
-
-    cu = torch.where(valid, colors[safe], PAD_COLOR)
-    pu = ig.priority[ids]
-    base_rows = base[safe]
-    pending = valid & (cu >= 0)
+    has_hubs = _has_hubs(ig, force_hub)
+    if has_hubs:
+        with step_span("ipgc.hub", part="forbidden"):
+            hub_forb = _hub_forbidden(ig, colors, base, window)
+    with step_span("ipgc.compact"):
+        valid = items < n
+        safe = torch.where(valid, items, 0)
+        ids = torch.where(valid, items, n)
+        cu = torch.where(valid, colors[safe], PAD_COLOR)
+        pu = ig.priority[ids]
+        base_rows = base[safe]
+        pending = valid & (cu >= 0)
     hub_tables = None
-    if _has_hubs(ig, force_hub):
-        pending_full = _set_rows(torch.zeros(n + 1, dtype=torch.bool,
-                                             device=colors.device),
-                                 torch.where(pending, items, n), pending)
-        hub_tables = (_hub_forbidden(ig, colors, base, window),
-                      _hub_lose(ig, colors, pending_full))
+    if has_hubs:
+        with step_span("ipgc.hub", part="lose"):
+            pending_full = _set_rows(torch.zeros(n + 1, dtype=torch.bool,
+                                                 device=colors.device),
+                                     torch.where(pending, items, n), pending)
+            hub_tables = (hub_forb, _hub_lose(ig, colors, pending_full))
 
     # the one gather, inside the kernel
-    new_c, new_base_rows, still, new_items, count = _fused_compact_rows(
-        ig, colors, items, base_rows, cu, pu, ids, valid, pending,
-        hub_tables, window, items.shape[0], tile_rows)
+    with step_span("ipgc.compact"):
+        new_c, new_base_rows, still, new_items, count = _fused_compact_rows(
+            ig, colors, items, base_rows, cu, pu, ids, valid, pending,
+            hub_tables, window, items.shape[0], tile_rows)
 
-    colors2 = _set_rows(colors, ids, torch.where(valid, new_c, PAD_COLOR))
-    colors2[n:].fill_(PAD_COLOR)
-    base2 = _set_rows_drop(base, ids, new_base_rows)
-    mask = _set_rows_drop(wl.mask, ids, still)
+    with step_span("ipgc.state"):
+        colors2 = _set_rows(colors, ids, torch.where(valid, new_c, PAD_COLOR))
+        colors2[n:].fill_(PAD_COLOR)
+        base2 = _set_rows_drop(base, ids, new_base_rows)
+        mask = _set_rows_drop(wl.mask, ids, still)
     return colors2, base2, Worklist(mask=mask, items=new_items, count=count)
 
 

@@ -26,12 +26,18 @@ together; the exchange trace (``'b'`` packed, ``'d'`` dense swap, ``'m'``
 mixed) and the byte ledger follow the reference.
 
 ``Session.run(trace=)`` returns a ``RunReport`` (DESIGN.md §12): the
-host loops open ``session.prepare``, ``session.iter`` and
-``session.chunk`` spans (host clock only, no device read), and after the
-timed run the steps run once more, uncaptured, on clones of the initial
-state, to count their launches, gathers and exchanges per iteration
-(cached per configuration; the kernel launches of that run are scoped
-away).
+host loops open ``session.prepare``, ``session.iter``, ``session.count``,
+``session.chunk`` and ``session.readback`` spans, the steps their
+``ipgc.*`` spans (``obs/trace.py``), and after the timed run the steps
+run once more, uncaptured, on clones of the initial state, to count
+their launches, gathers and exchanges per iteration (cached per
+configuration; the kernel launches of that run are scoped away). The
+run's spans come back on ``ColoringResult.spans``; on a CUDA device the
+host and outlined regimes' spans are device-timed by CUDA events that the
+trace resolves when it is first read, after the run, so tracing reads
+nothing more back and adds no synchronisation to the run. While torch's
+profiler records, an untraced run traces itself into a run-local trace
+the same way.
 
 ``run_batch`` colors many graphs at once as flattened lane groups
 (``exec/batch.py``), and ``stream`` opens the continuous-batching service
@@ -261,23 +267,45 @@ class Session:
         properties) plus the spans, the per-iteration launch, gather and
         exchange profiles, the compile-vs-execute split and a cache
         snapshot. In its timed window a traced run launches the kernels
-        an untraced run launches and reads back nothing more."""
+        an untraced run launches and reads back nothing more.
+
+        Without ``trace`` the run's spans go to the thread's ambient
+        trace, or, while torch's profiler records, to a run-local one;
+        either comes back as ``ColoringResult.spans``. With neither, the
+        run opens no span and ``spans`` is None."""
         if trace is None or trace is False:
-            return self._execute(spec, g, policy=policy,
-                                 collect_tti=collect_tti, devices=devices)
+            tr = obs_trace.current_trace()
+            if tr is None and not obs_trace.profiling():
+                return self._execute(spec, g, policy=policy,
+                                     collect_tti=collect_tti, devices=devices)
+            tr = tr or obs_trace.Trace()
+            with obs_trace.tracing(tr):
+                return self._scoped(tr, spec, lambda: self._execute(
+                    spec, g, policy=policy, collect_tti=collect_tti,
+                    devices=devices))
         tr = obs_trace.Trace() if trace is True else trace
         meter = _DispatchMeter()
         stats0 = dataclasses.replace(self.stats)
         with obs_trace.tracing(tr):
             with tr.span("session.run", regime=spec.regime, mode=spec.mode,
                          algo=str(spec.algo), graph=self._graph_name(g)):
-                result = self._execute(spec, g, policy=policy,
-                                       collect_tti=collect_tti,
-                                       devices=devices, meter=meter)
+                result = self._scoped(tr, spec, lambda: self._execute(
+                    spec, g, policy=policy, collect_tti=collect_tti,
+                    devices=devices, meter=meter))
                 with tr.span("obs.profile"):
                     profile = self._work_profile(meter)
         return self._assemble_report(spec, g, result, meter, profile,
                                      stats0, tr)
+
+    def _scoped(self, tr, spec: ExecutionSpec, execute) -> ColoringResult:
+        """``execute()`` inside ``tr``'s run scope, the result handed back
+        with ``spans=tr``. The host and outlined regimes on a CUDA device
+        time their spans on the device too; the dist regime's, which span
+        several devices, keep the host clock alone."""
+        with tr.run_scope(None if spec.regime == "dist" else self.device):
+            result = execute()
+        result.spans = tr
+        return result
 
     def _execute(self, spec: ExecutionSpec, g, *, policy, collect_tti,
                  devices, meter=None) -> ColoringResult:
@@ -538,7 +566,8 @@ class Session:
                                                 window=window,
                                                 force_hub=force_hub,
                                                 tile_rows=tile_rows)
-                count = int(wl.count)  # the Pipe's single scalar read-back
+                with obs_trace.maybe_span("session.count"):
+                    count = int(wl.count)  # the Pipe's one scalar read-back
             trace.append("D" if use_dense else "S")
             if meter is not None:
                 meter.add(t.seconds)
@@ -549,7 +578,8 @@ class Session:
             it += 1
 
         total = time.perf_counter() - t_start
-        final, n_colors = alg.finalize(colors[:n].cpu().numpy())
+        with obs_trace.maybe_span("session.readback"):
+            final, n_colors = alg.finalize(colors[:n].cpu().numpy())
         return ColoringResult(colors=final, n_colors=n_colors,
                               iterations=it, mode_trace="".join(trace),
                               counts=counts, tti=tti, total_seconds=total,
@@ -632,7 +662,8 @@ class Session:
                                   t.seconds)
 
         total = time.perf_counter() - t_start
-        final, n_colors = alg.finalize(runner.colors[:n].cpu().numpy())
+        with obs_trace.maybe_span("session.readback"):
+            final, n_colors = alg.finalize(runner.colors[:n].cpu().numpy())
         return ColoringResult(colors=final, n_colors=n_colors, iterations=it,
                               mode_trace="".join(trace), counts=counts,
                               tti=tti, total_seconds=total,

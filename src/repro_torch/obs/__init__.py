@@ -11,6 +11,6 @@ from repro_torch.obs.report import (RunReport,  # noqa: F401
                                     dense_swap_bytes, exchange_section,
                                     packed_exchange_bytes,
                                     totals_from_trace)
-from repro_torch.obs.trace import (Event, Span, Trace,  # noqa: F401
-                                   current_trace, maybe_event, maybe_span,
+from repro_torch.obs.trace import (Span, Trace, current_trace,  # noqa: F401
+                                   maybe_span, profiling, step_span,
                                    tracing)

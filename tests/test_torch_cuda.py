@@ -682,6 +682,68 @@ def test_card_traced_run_launches_what_untraced_launches(dev, spec_kw):
         (cpu.launches, cpu.gathers, cpu.exchanges)
 
 
+@pytest.mark.parametrize("fused", [False, True], ids=["two-phase", "fused"])
+def test_card_profiled_run_spans_have_device_times(dev, fused):
+    """Under torch's profiler a host-loop run on the card hands back its
+    spans (``ColoringResult.spans``), every one of them device-timed and
+    in order, and colors as the untraced run does."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.exec import ExecutionSpec, Session
+    g = repro_torch.get_dataset("kron_g500-logn21_s", scale=0.05,
+                                layout="ell-tail", ell_cap=128)
+    spec = ExecutionSpec(regime="host", fused=fused)
+    s = Session(dev)
+    plain = s.run(spec, g)
+    assert plain.spans is None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]):
+        r = s.run(spec, g)
+    spans = list(r.spans.walk())
+    assert {"session.iter", "session.count", "ipgc.hub", "ipgc.state",
+            "ipgc.compact"} <= {sp.name for sp in spans}
+    for sp in spans:
+        assert sp.device_start is not None and sp.device_end is not None
+        assert sp.device_end >= sp.device_start >= 0
+    iters = r.spans.find("session.iter")
+    assert len(iters) == r.iterations
+    assert all(a.device_end <= b.device_start
+               for a, b in zip(iters, iters[1:]))
+    np.testing.assert_array_equal(r.colors, plain.colors)
+    assert (r.iterations, r.mode_trace) == (plain.iterations,
+                                           plain.mode_trace)
+
+
+def test_card_outlined_capture_records_no_event(dev, monkeypatch):
+    """A traced outlined run on a fresh session captures its trips; no
+    span records a CUDA event while a stream is captured, the spans
+    opened in a capture carry no device time, and the chunks' do."""
+    from repro_torch.exec import ExecutionSpec, Session, chunk
+    g = repro_torch.get_dataset("kron_g500-logn21_s", scale=0.05,
+                                layout="ell-tail", ell_cap=128)
+    spec = ExecutionSpec(regime="outlined", fused=True)
+    real = torch.cuda.Event.record
+    recorded = []
+
+    def record(ev, stream=None):
+        assert not torch.cuda.is_current_stream_capturing()
+        recorded.append(1)
+        return real(ev, stream)
+
+    monkeypatch.setattr(torch.cuda.Event, "record", record)
+    with chunk.CHUNK_COUNTS.scope() as counts:
+        rep = Session(dev).run(spec, g, trace=True)
+        assert counts["graphs"] > 0
+    assert recorded
+    chunks = rep.trace.find("session.chunk")
+    assert chunks and all(sp.device_seconds is not None for sp in chunks)
+    assert any(sp.device_seconds is None
+               for sp in rep.trace.find("ipgc.compact"))
+    plain = Session(dev).run(spec, g)
+    np.testing.assert_array_equal(rep.colors, plain.colors)
+    assert rep.mode_trace == plain.mode_trace
+
+
 # --- the tile tuner and tile_rows --------------------------------------------
 
 #: tiles of the row kernels: the tuner's candidates, one that is not a
