@@ -46,7 +46,15 @@ each failing the script on any error:
    values' int32 sums of 127s wrap past 2^31 at 140,000, as the
    reference's do), one layer's pair of calls timed, and held exactly, at
    32,768 positions and at ``long_500k``'s 524,288 (``kernels.q8_dot``
-   line); its launches are phase 8's int8 run's;
+   line); its launches are phase 8's int8 run's; the hub side-channel's
+   ``hub_forbidden`` and ``hub_lose`` (``kernels.hub`` line) at the
+   operands of a kron ipgc two-phase coloring (its dense call and the
+   sparse calls whose gate let through the most, the median and the
+   fewest entries), byte for byte against their plain twins and timed
+   beside the bound of the bytes their rule in ``bench/kernels`` counts,
+   and the host's side of them: each call's host µs in an untraced
+   coloring, the host seconds inside the steps' ``ipgc.hub`` regions, and
+   the wrapper's µs a call against its bare launch function's;
 3. path: on kron_g500-logn21_s at scale 32 (2**21 nodes, ell-tail, hubs)
    and europe_osm_s at scale 127 (50.8M nodes, pure-ell), the hybrid Pipe
    (``repro_torch.color``) with ipgc two-phase and fused, jpl and
@@ -336,6 +344,9 @@ from repro_torch.kernels.fused_compact import \
     fused_compact_rows_plain  # noqa: E402
 from repro_torch.kernels.fused_step import \
     fused_step_rows_plain  # noqa: E402
+from repro_torch.kernels import hub as hub_mod  # noqa: E402
+from repro_torch.kernels.hub import (hub_forbidden_plain,  # noqa: E402
+                                     hub_lose_plain)
 from repro_torch.kernels.jpl_prio import (Hash, Table,  # noqa: E402
                                           jpl_extrema_rows_plain,
                                           round_hash)
@@ -378,6 +389,12 @@ SOURCES = {
                        "src/repro/kernels/frontier.py:35", "frontier"),
     "fused_step": ("src/repro_torch/kernels/csrc/fused_step.cu",
                    "src/repro/kernels/fused_step.py:99", "fused_step"),
+    # the hub side-channel: no Pallas kernel, the reference's jnp scatters
+    "hub_forbidden": ("src/repro_torch/kernels/csrc/hub.cu",
+                      "none: jnp scatters, src/repro/core/ipgc.py:313",
+                      "hub"),
+    "hub_lose": ("src/repro_torch/kernels/csrc/hub.cu",
+                 "none: jnp scatters, src/repro/core/ipgc.py:393", "hub"),
     # the int8 decode's products: no Pallas kernel, the reference's
     # int8 x int8 -> int32 dots (its scores at :215, values at :228)
     "q8_dot": ("src/repro_torch/kernels/csrc/q8_dot.cu",
@@ -1152,6 +1169,194 @@ def kernel_phase(ig, window: int, reps: int = 10) -> dict:
     return rows
 
 
+# --- the hub side-channel's kernels -------------------------------------------
+
+#: the hub kernels' wrappers (both counted as ``KERNEL_LAUNCHES["hub"]``)
+HUB_KERNELS = ("hub_forbidden", "hub_lose")
+HUB_PLAIN = {"hub_forbidden": hub_forbidden_plain, "hub_lose": hub_lose_plain}
+
+
+class HubRecorder:
+    """Wraps ``ops.hub_forbidden`` and ``ops.hub_lose`` while active. Counts
+    each call's entries that its gate lets through (a device scalar, read
+    after the run) and keeps the operands of the calls whose index is in
+    ``keep[name]``: the graph's tail arrays and slots as they are, copies
+    of the step's colors, base (or priority) and gate, no counter."""
+
+    def __init__(self, keep: "dict | None" = None):
+        self.keep = keep or {}
+        self.on = {name: [] for name in HUB_KERNELS}
+        self.kept = {name: {} for name in HUB_KERNELS}
+
+    def __enter__(self):
+        self.real = {name: getattr(ops, name) for name in HUB_KERNELS}
+        for name in HUB_KERNELS:
+            setattr(ops, name, self._spy(name))
+        return self
+
+    def _spy(self, name):
+        real = self.real[name]
+
+        def spy(*args):
+            i = len(self.on[name])
+            self.on[name].append(args[6][args[0]].sum())
+            if i in self.keep.get(name, ()):
+                self.kept[name][i] = (args[:4]
+                                      + tuple(a.clone() for a in args[4:7])
+                                      + args[7:-1] + (None,))
+            return real(*args)
+        return spy
+
+    def __exit__(self, *exc):
+        for name in HUB_KERNELS:
+            setattr(ops, name, self.real[name])
+
+    def shares(self, name: str) -> list:
+        """Each call's share of the tail's entries its gate let through."""
+        return [int(x) for x in self.on[name]]
+
+
+def hub_bytes(name: str, args) -> int:
+    """The bytes the benchmark's byte rule (``bench/kernels``) counts for
+    this call: what its work needs, nothing the gate skips."""
+    from bench import catalog, tracing
+    kernel = f"{name}_kernel"
+    rec = tracing.Recorder({kernel: catalog.kernel_rules()[kernel]})
+    with rec.installed():
+        getattr(ops, name)(*args)
+    return rec.bytes[kernel]
+
+
+def hub_row(name: str, args, shape: dict, reps: int) -> dict:
+    """A hub kernel's row at one recorded call: byte for byte equal to its
+    plain twin, then kernel / plain ms beside the gated bound."""
+    return kernel_row(name, lambda: getattr(ops, name)(*args),
+                      lambda: HUB_PLAIN[name](*args), hub_bytes(name, args),
+                      0, shape, None, reps)
+
+
+def hub_host(g, kept: dict, reps: int = 200) -> dict:
+    """The host's side of the hub side-channel. In an untraced, warm kron
+    ipgc two-phase coloring: the host seconds of each ``ops.hub_*`` call
+    (checks, library lookup, launch) and inside the steps' ``ipgc.hub``
+    regions (the calls, the gates and folds around them), beside the
+    coloring's seconds. Then, on a kept sparse call, ``reps`` calls back to
+    back: the wrapper's host µs against the bare launch function's on the
+    same pointers."""
+    timed = {name: [] for name in HUB_KERNELS}
+    regions: list = []
+    real = {name: getattr(ops, name) for name in HUB_KERNELS}
+    real_span = ipgc._hub_span
+
+    def clocked(name):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = real[name](*args)
+            timed[name].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    @contextlib.contextmanager
+    def region(ig, part):
+        t0 = time.perf_counter()
+        with real_span(ig, part) as sp:
+            yield sp
+        regions.append(time.perf_counter() - t0)
+
+    repro_torch.color(g, fused=False)
+    torch.cuda.synchronize()
+    for name in HUB_KERNELS:
+        setattr(ops, name, clocked(name))
+    ipgc._hub_span = region
+    try:
+        r = repro_torch.color(g, fused=False)
+    finally:
+        ipgc._hub_span = real_span
+        for name in HUB_KERNELS:
+            setattr(ops, name, real[name])
+    out = dict(iterations=r.iterations, color_seconds=r.total_seconds,
+               hub_regions=len(regions), hub_region_seconds=sum(regions))
+    for name in HUB_KERNELS:
+        out[f"{name}_calls"] = len(timed[name])
+        out[f"{name}_call_seconds"] = sum(timed[name])
+        out[f"{name}_call_us"] = 1e6 * sum(timed[name]) / len(timed[name])
+    # the wrapper against the bare launch, on one kept sparse call
+    args = kept["hub_forbidden"]
+    tail_src, tail_dst, valid, slot, colors, base, gate, window, n_hub, _ = \
+        args
+    fn = _build.function("hub", "hub_forbidden_launch",
+                         hub_mod._FORB_ARGTYPES)
+    table = torch.empty((n_hub + 1, window), dtype=torch.bool,
+                        device=colors.device)
+    ptrs = [t.data_ptr() for t in (tail_src, tail_dst, valid, slot, colors,
+                                   base, gate)]
+    stream = torch.cuda.current_stream().cuda_stream
+    t_entries = tail_src.shape[0]
+
+    def bare():
+        _build.check(fn(*ptrs, window, t_entries, n_hub, table.data_ptr(),
+                        None, stream), "hub_forbidden")
+
+    for what, call in (("wrapper", lambda: ops.hub_forbidden(*args)),
+                       ("bare", bare)):
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        out[f"{what}_us"] = 1e6 * (time.perf_counter() - t0) / reps
+        torch.cuda.synchronize()
+    return out
+
+
+def hub_phase(g, reps: int = 10) -> dict:
+    """The hub kernels at the operands a kron ipgc two-phase coloring
+    (``repro_torch.color``, the host loop) hands them: its first call
+    (the dense step) and, of the sparse steps' calls, those whose gate let
+    through the most, the median and the fewest entries. A first coloring
+    counts each call's entries; a second, the same, keeps those calls.
+    Each is held byte for byte against its plain twin and timed beside the
+    bound of the bytes its byte rule counts; then the host's side
+    (``hub_host``). Returns the kernels line's two rows."""
+    with HubRecorder() as rec:
+        repro_torch.color(g, fused=False)
+    picks, share = {}, {}
+    for name in HUB_KERNELS:
+        on = share[name] = rec.shares(name)
+        sparse = sorted(range(1, len(on)), key=lambda i: (on[i], i))
+        picks[name] = {"dense": 0, "sparse_most": sparse[-1],
+                       "sparse_median": sparse[len(sparse) // 2],
+                       "sparse_fewest": sparse[0]}
+    with HubRecorder({name: set(p.values()) for name, p in picks.items()}
+                     ) as rec:
+        repro_torch.color(g, fused=False)
+    if any(rec.shares(name) != share[name] for name in HUB_KERNELS):
+        raise AssertionError("hub calls: the second kron coloring differs "
+                             "from the first")
+    rows = {}
+    for name in HUB_KERNELS:
+        t_entries = rec.kept[name][0][0].shape[0]
+        by = {}
+        for what, i in picks[name].items():
+            args = rec.kept[name][i]
+            shape = dict(call=i, calls=len(share[name]), entries=t_entries,
+                         let_through=share[name][i],
+                         gate_share=share[name][i] / t_entries,
+                         n_hub=args[-2],
+                         window=args[7] if name == "hub_forbidden" else None)
+            by[what] = dict(hub_row(name, args, shape, reps), step=what)
+        row = by.pop("dense")
+        row["sparse"] = list(by.values())
+        row["gate_share_mean"] = (sum(share[name])
+                                  / (t_entries * len(share[name])))
+        rows[name] = row
+    host = hub_host(g, {name: rec.kept[name][picks[name]["sparse_median"]]
+                        for name in HUB_KERNELS})
+    del rec
+    log(phase="kernels.hub", rows=list(rows.values()), host=host)
+    return rows
+
+
 #: the int8 decode's kernel, held exactly against its twin at these (B, S,
 #: Hk, G, D): Minitron-4B's widths (one sequence, 8 KV heads of 128, G = 3)
 #: at 32,768 positions and at 140,000, past 133,144, where 127^2 * S passes
@@ -1887,7 +2092,7 @@ def fused_step_row(ig, mesh, window: int, sparse: "dict | None",
 #: the names of this port's CUDA kernels, as the profiler reports them
 OWN_KERNELS = ("mex_window_kernel", "conflict_kernel", "scan_kernel",
                "fused_rows_kernel", "jpl_extrema_kernel", "frontier_kernel",
-               "fused_step_kernel")
+               "fused_step_kernel", "hub_forbidden_kernel", "hub_lose_kernel")
 
 
 def chunk_runners(g, algo: str) -> list:
@@ -2300,7 +2505,7 @@ LANE_PLAIN = {"mex_window": mex_window_rows_plain,
               "conflict": conflict_rows_plain,
               "compact": compact_plain,
               "fused_compact": fused_compact_rows_plain,
-              "jpl_extrema": jpl_extrema_rows_plain}
+              "jpl_extrema": jpl_extrema_rows_plain, **HUB_PLAIN}
 #: every lane-trip call held against its plain version: (kernel, rows)
 LANE_CHECKS: list = []
 
@@ -4592,9 +4797,12 @@ def run_phases(card: str, mark, marks: list, t_start: float,
     mark("kron.build")
     kron_ig = repro_torch.prepare(kron)
     rows = kernel_phase(kron_ig, adaptive_window(kron))
+    del kron_ig
+    torch.cuda.empty_cache()
+    rows.update(hub_phase(kron))
+    default_session().cache.clear()
     q8 = q8_row()
     mark("kernels")
-    del kron_ig
     torch.cuda.empty_cache()
 
     kron_host: dict = {}

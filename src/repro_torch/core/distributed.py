@@ -138,6 +138,7 @@ class Shard:
     lo: int
     hi: int
     row_ids: torch.Tensor        # int32[hi - lo], the owned global ids
+    hub_slot: torch.Tensor       # int32[N], every row's hub slot (a replica)
 
     @property
     def device(self) -> torch.device:
@@ -168,15 +169,16 @@ def shard_graph(ig: ipgc.IPGCGraph, mesh) -> tuple[Shard, ...]:
     blk = n // s_count
     reps = _per_device(mesh, lambda d: {f: getattr(ig, f).to(d)
                                         for f in _REPLICATED})
+    slots = _per_device(mesh, ig.hub_slot.to)
     shards = []
-    for s, (d, rep) in enumerate(zip(mesh, reps)):
+    for s, (d, rep, slot) in enumerate(zip(mesh, reps, slots)):
         lo, hi = s * blk, (s + 1) * blk
         local = dataclasses.replace(
             ig, ell_idx=ig.ell_idx[lo:hi].to(d),
             degrees=ig.degrees[lo:hi].to(d),
             hub_slot=ig.hub_slot[lo:hi].to(d), **rep)
         shards.append(Shard(ig=local, lo=lo, hi=hi, row_ids=torch.arange(
-            lo, hi, dtype=torch.int32, device=d)))
+            lo, hi, dtype=torch.int32, device=d), hub_slot=slot))
     return tuple(shards)
 
 
@@ -440,10 +442,14 @@ def _dense_fused_local(sh: Shard, colors, base_l, active, window: int,
     if ig.n_hub > 0:
         base_pad = _padded(sh, base_l, n)
         # only owned hub slots are read, and their tail_src rows are owned
-        # too — the shard's own pending flags suffice (no exchange)
+        # too — the shard's own active and pending flags suffice (no
+        # exchange)
         pending_full = _padded(sh, pending, n + 1)
-        hub_tables = (ipgc._hub_forbidden(ig, colors, base_pad, window),
-                      ipgc._hub_lose(ig, colors, pending_full))
+        hub_tables = (
+            ipgc._hub_forbidden(ig, colors, base_pad, window,
+                                _padded(sh, active, n),
+                                hub_slot=sh.hub_slot),
+            ipgc._hub_lose(ig, colors, pending_full, hub_slot=sh.hub_slot))
     # the kernel gathers the shard's neighbours itself (rows None: all)
     lose, first, has = ipgc._fused_rows(ig, colors, None, base_l, cu, pu,
                                         sh.row_ids, pending, hub_tables,
@@ -463,7 +469,9 @@ def _dense_assign_local(sh: Shard, colors, base_l, active, window: int,
     hub_forb = None
     if ig.n_hub > 0:
         base_pad = _padded(sh, base_l, n)
-        hub_forb = ipgc._hub_forbidden(ig, colors, base_pad, window)
+        hub_forb = ipgc._hub_forbidden(ig, colors, base_pad, window,
+                                       _padded(sh, active, n),
+                                       hub_slot=sh.hub_slot)
     cu = colors[sh.lo:sh.hi]
     # the kernel gathers the shard's neighbours itself (rows None: all)
     new_c, new_base, newly = ipgc._mex_rows(ig, colors, None, base_l, active,
@@ -480,7 +488,8 @@ def _dense_resolve_local(sh: Shard, colors2, active, newly,
     if ig.n_hub > 0:
         # a local scatter: owned slots only read owned tail_src rows
         newly_g = _padded(sh, newly, n + 1)
-        lose = lose | ipgc._hub_lose(ig, colors2, newly_g)[ig.hub_slot]
+        lose = lose | ipgc._hub_lose(ig, colors2, newly_g,
+                                     hub_slot=sh.hub_slot)[ig.hub_slot]
     c2 = colors2[sh.lo:sh.hi]
     # exchange 2 uncolors the losers (their writes were in colors2)
     undo = _Writes(None, c2, torch.where(lose, NO_COLOR, c2))
@@ -576,8 +585,8 @@ def _sparse_rows(sh: Shard, colors, items_l, base_l=None) -> _SparseRows:
                        base_rows=None if base_l is None else base_l[local])
 
 
-def _sparse_fused_local(sh: Shard, colors, base_l, items_l, window: int,
-                        tile_rows: "int | None"):
+def _sparse_fused_local(sh: Shard, colors, base_l, items_l, active,
+                        window: int, tile_rows: "int | None"):
     ig = sh.ig
     n = ig.n_nodes
     r = _sparse_rows(sh, colors, items_l, base_l)
@@ -586,11 +595,12 @@ def _sparse_fused_local(sh: Shard, colors, base_l, items_l, window: int,
     hub_tables = None
     if ig.n_hub > 0:
         base_pad = _padded(sh, base_l, n)
-        pending_full = ipgc._set_rows(
-            torch.zeros(n + 1, dtype=torch.bool, device=sh.device),
-            torch.where(pending, items_l, n), pending)
-        hub_tables = (ipgc._hub_forbidden(ig, colors, base_pad, window),
-                      ipgc._hub_lose(ig, colors, pending_full))
+        pending_full = ipgc._row_flags(n, items_l, pending)
+        hub_tables = (
+            ipgc._hub_forbidden(ig, colors, base_pad, window,
+                                _padded(sh, active, n),
+                                hub_slot=sh.hub_slot),
+            ipgc._hub_lose(ig, colors, pending_full, hub_slot=sh.hub_slot))
     # the kernel gathers the items' neighbours itself (pad lanes: row blk)
     lose, first, has = ipgc._fused_rows(ig, colors, r.rows, r.base_rows,
                                         r.cu, pu, r.ids, pending, hub_tables,
@@ -605,14 +615,16 @@ def _sparse_fused_local(sh: Shard, colors, base_l, items_l, window: int,
     return writes, r, new_base_rows, need
 
 
-def _sparse_assign_local(sh: Shard, colors, base_l, items_l, window: int,
-                         tile_rows: "int | None"):
+def _sparse_assign_local(sh: Shard, colors, base_l, items_l, active,
+                         window: int, tile_rows: "int | None"):
     ig = sh.ig
     r = _sparse_rows(sh, colors, items_l, base_l)
     hub_forb = None
     if ig.n_hub > 0:
         base_pad = _padded(sh, base_l, ig.n_nodes)
-        hub_forb = ipgc._hub_forbidden(ig, colors, base_pad, window)
+        hub_forb = ipgc._hub_forbidden(ig, colors, base_pad, window,
+                                       _padded(sh, active, ig.n_nodes),
+                                       hub_slot=sh.hub_slot)
     # the kernel gathers the items' neighbours itself (pad lanes: row blk)
     new_c, new_base_rows, newly = ipgc._mex_rows(ig, colors, r.rows,
                                                  r.base_rows, r.valid, r.cu,
@@ -628,10 +640,8 @@ def _sparse_resolve_local(sh: Shard, colors2, items_l, r: _SparseRows,
     # the shard's ELL rows of the items, pad lanes past its block
     lose = ipgc._lose_rows(ig, r.rows, r.ids, colors2, newly, tile_rows)
     if ig.n_hub > 0:
-        newly_full = ipgc._set_rows(
-            torch.zeros(n + 1, dtype=torch.bool, device=sh.device),
-            torch.where(newly, items_l, n), newly)
-        hub_l = ipgc._hub_lose(ig, colors2, newly_full)
+        hub_l = ipgc._hub_lose(ig, colors2, ipgc._row_flags(n, items_l, newly),
+                               hub_slot=sh.hub_slot)
         lose = lose | (hub_l[ig.hub_slot[r.local]] & r.valid)
     c2 = colors2[r.ids]
     undo = _Writes(r.ids, c2, torch.where(lose, NO_COLOR, c2))
@@ -670,15 +680,19 @@ def make_dist_sparse_step(ig: ipgc.IPGCGraph, mesh, *, window: int = 128,
 
     def run(colors, base, wl: ShardedWorklist, pub):
         items = [b.items for b in wl.blocks]
+        # each block's mask holds its items: the hub forbidden table's gate
+        masks = [b.mask for b in wl.blocks]
         if fused:
             writes, rows, new_base_rows, still = zip(*(
-                _sparse_fused_local(sh, c, b, it, window, tile_rows)
-                for sh, c, b, it in zip(shards, colors, base, items)))
+                _sparse_fused_local(sh, c, b, it, m, window, tile_rows)
+                for sh, c, b, it, m in zip(shards, colors, base, items,
+                                           masks)))
             colors_out = pub(colors, writes)
         else:
             writes, rows, new_base_rows, newly = zip(*(
-                _sparse_assign_local(sh, c, b, it, window, tile_rows)
-                for sh, c, b, it in zip(shards, colors, base, items)))
+                _sparse_assign_local(sh, c, b, it, m, window, tile_rows)
+                for sh, c, b, it, m in zip(shards, colors, base, items,
+                                           masks)))
             colors2 = pub(colors, writes)
             undos, still = zip(*(
                 _sparse_resolve_local(sh, c, it, r, nw, tile_rows)

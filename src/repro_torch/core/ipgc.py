@@ -22,8 +22,10 @@ hand-written kernels (``mex_window``, ``conflict``, ``compact``,
 ``fused_compact``, and ``fused_step`` for the distributed steps of
 ``core/distributed.py``), on the CPU their plain PyTorch versions. Hub tails
 (degree > ELL width) fold in through a per-hub forbidden/conflict
-side-channel of PyTorch scatters, and the csr-segment layout runs edge-wise
-scatters (``kernels/csr_segment.py``).
+side-channel: the ``hub_forbidden`` and ``hub_lose`` kernels, one pass over
+the COO tail each, which skip the entries whose source is off
+(``kernels/hub.py``). The csr-segment layout runs edge-wise scatters
+(``kernels/csr_segment.py``).
 
 Every step is shape-static and reads nothing back to the host, so the
 Pipe's ``count`` read is the only synchronisation per iteration. The steps
@@ -48,9 +50,8 @@ from repro_torch.graphs import csr
 from repro_torch.graphs.csr import Graph
 from repro_torch.kernels import csr_segment as kcsr
 from repro_torch.kernels import ops
-from repro_torch.kernels.csr_segment import flags_at
 from repro_torch.obs.metrics import default_registry
-from repro_torch.obs.trace import step_span
+from repro_torch.obs.trace import span_counter, step_span
 
 NO_COLOR = int(csr.NO_COLOR)
 PAD_COLOR = int(csr.PAD_COLOR)
@@ -369,29 +370,50 @@ def _set_rows_drop(x: torch.Tensor, rows: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _hub_forbidden(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
-                   window: int) -> torch.Tensor:
+                   window: int, gate: torch.Tensor, *,
+                   hub_slot: "torch.Tensor | None" = None,
+                   span=None) -> torch.Tensor:
     """(n_hub+1, W) forbidden bitmap from COO-tail edges; row n_hub is a
-    guaranteed-False row that non-hub nodes gather."""
-    nh = ig.n_hub
-    tc = colors[ig.tail_dst]               # PAD_COLOR for padded entries
-    rel = tc - base[ig.tail_src]
-    ok = ig.tail_valid & (tc >= 0) & (rel >= 0) & (rel < window)
-    flat = torch.where(ok, ig.tail_slot.to(torch.int64) * window + rel,
-                       (nh + 1) * window)
-    return flags_at((nh + 1) * window + 1, flat)[:-1].view(nh + 1, window)
+    guaranteed-False row that non-hub nodes gather. ``gate`` bool[N] must
+    hold every row that reads the table (the active rows): the rows whose
+    gate is off read False. ``hub_slot`` int32[N] every source's slot
+    (default ``ig.hub_slot``; a shard passes the whole graph's); ``span``
+    the open ``ipgc.hub`` span (``_hub_span``) or None: the kernel adds
+    the entries its gate lets through to the span's ``visited``."""
+    return ops.hub_forbidden(
+        ig.tail_src, ig.tail_dst, ig.tail_valid,
+        ig.hub_slot if hub_slot is None else hub_slot, colors, base, gate,
+        window, ig.n_hub, span_counter(span, "visited", ig.device))
 
 
-def _hub_lose(ig: IPGCGraph, colors: torch.Tensor,
-              newly_full: torch.Tensor) -> torch.Tensor:
-    """(n_hub+1,) conflict flags for hub rows from COO-tail edges."""
-    nh = ig.n_hub
-    cu = colors[ig.tail_src]
-    cv = colors[ig.tail_dst]
-    pu = ig.priority[ig.tail_src]
-    pv = ig.priority[ig.tail_dst]
-    lose = (ig.tail_valid & (cu >= 0) & (cu == cv) & newly_full[ig.tail_src]
-            & ((pv > pu) | ((pv == pu) & (ig.tail_dst > ig.tail_src))))
-    return flags_at(nh + 2, torch.where(lose, ig.tail_slot, nh + 1))[:nh + 1]
+def _hub_lose(ig: IPGCGraph, colors: torch.Tensor, flags: torch.Tensor, *,
+              hub_slot: "torch.Tensor | None" = None,
+              span=None) -> torch.Tensor:
+    """(n_hub+1,) conflict flags for hub rows from COO-tail edges: the
+    (N,) or (N+1,) ``flags`` (newly colored or pending) gate each entry's
+    source. ``hub_slot`` and ``span`` as for ``_hub_forbidden``."""
+    return ops.hub_lose(
+        ig.tail_src, ig.tail_dst, ig.tail_valid,
+        ig.hub_slot if hub_slot is None else hub_slot, colors, ig.priority,
+        flags[:ig.n_nodes], ig.n_hub,
+        span_counter(span, "visited", ig.device))
+
+
+def _row_flags(n: int, rows: torch.Tensor,
+               flags: torch.Tensor) -> torch.Tensor:
+    """bool[N+1], True at the ``rows`` whose ``flags`` are set: a sparse
+    step's newly-colored or pending rows as ``_hub_lose``'s gate. ``rows``
+    is a worklist's items block (distinct rows, padded with N, whose flags
+    are off)."""
+    out = torch.zeros(n + 1, dtype=torch.bool, device=rows.device)
+    return out.index_put_((rows,), flags)
+
+
+def _hub_span(ig: IPGCGraph, part: str):
+    """The ``ipgc.hub`` span of one table, ``entries`` the tail's length;
+    handed to ``_hub_forbidden``/``_hub_lose`` as ``span``, it counts the
+    entries the table's gate lets through (``visited``)."""
+    return step_span("ipgc.hub", part=part, entries=ig.tail_src.shape[0])
 
 
 # ---------------------------------------------------------------------------
@@ -580,8 +602,9 @@ def dense_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
     # --- assign (speculative windowed mex, gathering in the kernel) ---
     hub_forb = None
     if has_hubs:
-        with step_span("ipgc.hub", part="forbidden"):
-            hub_forb = _hub_forbidden(ig, colors, base, window)
+        with _hub_span(ig, "forbidden") as sp:
+            hub_forb = _hub_forbidden(ig, colors, base, window, active,
+                                      span=sp)
     with step_span("ipgc.assign"):
         _count_kernel_gather()
         new_c, new_base, newly = _mex_rows(ig, colors, None, base, active,
@@ -595,9 +618,9 @@ def dense_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
         row_ids = torch.arange(n, dtype=torch.int32, device=colors.device)
         lose = _lose_rows(ig, None, row_ids, colors2, newly, tile_rows)
     if has_hubs:
-        with step_span("ipgc.hub", part="lose"):
-            newly_full = torch.cat([newly, newly.new_zeros(1)])
-            lose = lose | _hub_lose(ig, colors2, newly_full)[ig.hub_slot]
+        with _hub_span(ig, "lose") as sp:
+            hub_l = _hub_lose(ig, colors2, newly, span=sp)
+            lose = lose | hub_l[ig.hub_slot]
     with step_span("ipgc.state"):
         colors3 = torch.cat([torch.where(lose, NO_COLOR, new_c),
                              colors[n:]])
@@ -629,8 +652,10 @@ def sparse_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
     # --- assign ---
     hub_forb = None
     if has_hubs:
-        with step_span("ipgc.hub", part="forbidden"):
-            hub_forb = _hub_forbidden(ig, colors, base, window)
+        # the worklist's mask holds its items, the rows that read the table
+        with _hub_span(ig, "forbidden") as sp:
+            hub_forb = _hub_forbidden(ig, colors, base, window, wl.mask,
+                                      span=sp)
     with step_span("ipgc.assign"):
         valid = items < n
         safe = torch.where(valid, items, 0)
@@ -650,11 +675,9 @@ def sparse_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
     with step_span("ipgc.resolve"):
         lose = _lose_rows(ig, items, target, colors2, newly, tile_rows)
     if has_hubs:
-        with step_span("ipgc.hub", part="lose"):
-            newly_full = _set_rows(torch.zeros(n + 1, dtype=torch.bool,
-                                               device=colors.device),
-                                   torch.where(newly, items, n), newly)
-            hub_l = _hub_lose(ig, colors2, newly_full)
+        with _hub_span(ig, "lose") as sp:
+            hub_l = _hub_lose(ig, colors2, _row_flags(n, items, newly),
+                              span=sp)
             lose = lose | (hub_l[ig.hub_slot[safe]] & valid)
     with step_span("ipgc.state"):
         colors3 = _set_rows(colors2, torch.where(lose, items, n),
@@ -694,8 +717,9 @@ def fused_dense_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
     active = wl.mask
     has_hubs = _has_hubs(ig, force_hub)
     if has_hubs:
-        with step_span("ipgc.hub", part="forbidden"):
-            hub_forb = _hub_forbidden(ig, colors, base, window)
+        with _hub_span(ig, "forbidden") as sp:
+            hub_forb = _hub_forbidden(ig, colors, base, window, active,
+                                      span=sp)
     with step_span("ipgc.compact"):
         row_ids = torch.arange(n, dtype=torch.int32, device=colors.device)
         cu = colors[:n]
@@ -703,9 +727,8 @@ def fused_dense_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
         pending = active & (cu >= 0)
     hub_tables = None
     if has_hubs:
-        with step_span("ipgc.hub", part="lose"):
-            pending_full = torch.cat([pending, pending.new_zeros(1)])
-            hub_tables = (hub_forb, _hub_lose(ig, colors, pending_full))
+        with _hub_span(ig, "lose") as sp:
+            hub_tables = (hub_forb, _hub_lose(ig, colors, pending, span=sp))
     # the one gather, inside the kernel
     with step_span("ipgc.compact"):
         new_c, new_base, still, items, count = _fused_compact_rows(
@@ -728,8 +751,9 @@ def fused_sparse_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
     items = wl.items
     has_hubs = _has_hubs(ig, force_hub)
     if has_hubs:
-        with step_span("ipgc.hub", part="forbidden"):
-            hub_forb = _hub_forbidden(ig, colors, base, window)
+        with _hub_span(ig, "forbidden") as sp:
+            hub_forb = _hub_forbidden(ig, colors, base, window, wl.mask,
+                                      span=sp)
     with step_span("ipgc.compact"):
         valid = items < n
         safe = torch.where(valid, items, 0)
@@ -740,11 +764,9 @@ def fused_sparse_step(ig: IPGCGraph, colors: torch.Tensor, base: torch.Tensor,
         pending = valid & (cu >= 0)
     hub_tables = None
     if has_hubs:
-        with step_span("ipgc.hub", part="lose"):
-            pending_full = _set_rows(torch.zeros(n + 1, dtype=torch.bool,
-                                                 device=colors.device),
-                                     torch.where(pending, items, n), pending)
-            hub_tables = (hub_forb, _hub_lose(ig, colors, pending_full))
+        with _hub_span(ig, "lose") as sp:
+            hub_tables = (hub_forb, _hub_lose(
+                ig, colors, _row_flags(n, items, pending), span=sp))
 
     # the one gather, inside the kernel
     with step_span("ipgc.compact"):

@@ -24,7 +24,7 @@ from repro_torch.obs.metrics import CounterGroup
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("mex_window", "conflict", "compact", "fused_compact", "jpl_prio",
-           "frontier", "fused_step", "q8_dot")
+           "frontier", "fused_step", "q8_dot", "hub")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 

@@ -38,6 +38,8 @@ from repro_torch.kernels.fused_compact import (fused_compact_cuda,
                                                fused_compact_rows_plain)
 from repro_torch.kernels.fused_step import (fused_step_cuda,
                                             fused_step_rows_plain)
+from repro_torch.kernels.hub import (hub_forbidden_cuda, hub_forbidden_plain,
+                                     hub_lose_cuda, hub_lose_plain)
 from repro_torch.kernels.jpl_prio import (jpl_extrema_cuda,
                                           jpl_extrema_rows_plain)
 from repro_torch.kernels.mex_window import (mex_window_cuda,
@@ -140,6 +142,31 @@ def fused_step(colors, priority, ell_idx, rows, base, cu, pu, ids, pending,
     if _on_cuda(colors):
         return kernel_call("fused_step", fused_step_cuda, *args, tile_rows)
     return kernel_call("fused_step", fused_step_rows_plain, *args)
+
+
+def hub_forbidden(tail_src, tail_dst, tail_valid, hub_slot, colors, base,
+                  gate, window: int, n_hub: int, visited=None
+                  ) -> torch.Tensor:
+    """The (n_hub+1, W) hub forbidden table from the COO tail, each entry
+    gated by its source: tail_src, tail_dst int32[T], tail_valid bool[T];
+    hub_slot int32[N] (every source's slot), gate bool[N]; colors
+    int32[N+1], base int32[N]; visited None or an int64[1] counter of the
+    entries let through (see ``kernels/hub.py``)."""
+    args = (tail_src, tail_dst, tail_valid, hub_slot, colors, base, gate,
+            window, n_hub, visited)
+    fn = hub_forbidden_cuda if _on_cuda(colors) else hub_forbidden_plain
+    return kernel_call("hub", fn, *args)
+
+
+def hub_lose(tail_src, tail_dst, tail_valid, hub_slot, colors, priority,
+             flags, n_hub: int, visited=None) -> torch.Tensor:
+    """The (n_hub+1,) hub lose flags from the COO tail, each entry gated by
+    its source's ``flags`` bool[N] (the newly-colored or pending rows);
+    the other operands as for ``hub_forbidden``, priority int32[N+1]."""
+    args = (tail_src, tail_dst, tail_valid, hub_slot, colors, priority,
+            flags, n_hub, visited)
+    fn = hub_lose_cuda if _on_cuda(colors) else hub_lose_plain
+    return kernel_call("hub", fn, *args)
 
 
 def jpl_extrema(ell_idx: torch.Tensor, rows: "torch.Tensor | None",

@@ -21,9 +21,13 @@ Span names of the port (this list is the schema):
   session.chunk — one outlined chunk (``branch``, ``count``, ``cap``)
   session.readback — the colors' copy to the host and ``finalize``
   ipgc.hub — the hub side-channel of a step (``part``: ``forbidden``,
-      ``lose``): ``_hub_forbidden``, ``_hub_lose``, their hub-only
-      (N+1) flag arrays and the fold of the hub flags into the rows';
-      read by ``steps.hub_ms``
+      ``lose``): the ``hub_forbidden`` or ``hub_lose`` kernel
+      (``_hub_forbidden``, ``_hub_lose``), its zeroed table, the hub-only
+      (N+1) flag array and the fold of the hub flags into the rows'; read
+      by ``steps.hub_ms``. ``entries``: the COO tail's length T (a host
+      int); ``visited``: the entries whose source's gate let them through
+      (a device counter, ``span_counter``); read by
+      ``steps.hub_visit_pct``
   ipgc.state — a step's O(N) state rewrites (``_set_rows``,
       ``_set_rows_drop`` of colors, base and mask; the dense steps'
       concatenations), the values they write and the padding fills; read
@@ -65,6 +69,14 @@ has synchronised, so neither the loop nor the run pays for a
 synchronisation or for reading the events back. A span's device time is
 the device's wall time between its two events, idle included.
 
+Device counters. ``span_counter(sp, name, device)`` hands the code inside
+an open span an int64[1] zero on the device, which the work adds to: a
+slot of a zeroed buffer the trace keeps per device, so a counter costs no
+allocation and no fill of its own. The trace reads it into
+``sp.attrs[name]`` when it resolves the events, one copy of each buffer
+to the host. None while spans are off or the device's current stream is
+being captured.
+
 ``to_chrome()`` exports the Chrome trace-event JSON format (complete
 ``"X"`` events with microsecond ``ts``/``dur``): each span on the host
 track (``tid`` 0) and each device-timed span again on a device track
@@ -86,6 +98,8 @@ from torch.autograd.profiler import record_function
 
 #: torch's own check of a recording profiler (~0.1 µs)
 _profiler_enabled = torch.autograd._profiler_enabled
+#: device counters a buffer (``span_counter``)
+_COUNTER_SLOTS = 1024
 
 
 @dataclasses.dataclass
@@ -104,6 +118,10 @@ class Span:
     #: the (open, close) CUDA events until the trace resolves them
     events: "tuple | None" = dataclasses.field(default=None, repr=False,
                                                compare=False)
+    #: attr name -> (buffer, slot) of a device counter (``span_counter``)
+    #: until resolved
+    counters: dict = dataclasses.field(default_factory=dict, repr=False,
+                                       compare=False)
 
     @property
     def seconds(self) -> "float | None":
@@ -136,6 +154,8 @@ class Trace:
         self._device: "torch.device | None" = None   # events recorded on
         self._in_run = False
         self._pending: list[Span] = []
+        #: device -> [zeroed int64 counter buffer, its next free slot]
+        self._counters: dict = {}
 
     @contextlib.contextmanager
     def span(self, name: str, **attrs):
@@ -154,7 +174,8 @@ class Trace:
                 closed = self._mark()
                 if closed is not None:
                     sp.events = (opened, closed)
-                    self._pending.append(sp)
+            if sp.events is not None or sp.counters:
+                self._pending.append(sp)
             if rf is not None:
                 rf.__exit__(None, None, None)
             self._stack.pop()
@@ -188,16 +209,36 @@ class Trace:
         finally:
             self._device, self._in_run = prev
 
+    def counter(self, device: torch.device) -> tuple:
+        """The next free slot of this trace's zeroed counter buffer on
+        ``device``: ``(buffer, slot)``."""
+        got = self._counters.get(device)
+        if got is None or got[1] == got[0].shape[0]:
+            got = [torch.zeros(_COUNTER_SLOTS, dtype=torch.int64,
+                               device=device), 0]
+            self._counters[device] = got
+        got[1] += 1
+        return got[0], got[1] - 1
+
     def resolve(self) -> None:
         """Turn the closed spans' events into ``device_start`` and
-        ``device_end``, waiting for each closing event."""
+        ``device_end``, waiting for each closing event, and their device
+        counters into attrs."""
         pending, self._pending = self._pending, []
+        host: dict = {}
         for sp in pending:
-            opened, closed = sp.events
-            closed.synchronize()
-            sp.device_start = self.device_origin.elapsed_time(opened) * 1e-3
-            sp.device_end = self.device_origin.elapsed_time(closed) * 1e-3
-            sp.events = None
+            if sp.events is not None:
+                opened, closed = sp.events
+                closed.synchronize()
+                sp.device_start = \
+                    self.device_origin.elapsed_time(opened) * 1e-3
+                sp.device_end = self.device_origin.elapsed_time(closed) * 1e-3
+                sp.events = None
+            for name, (buf, slot) in sp.counters.items():
+                if id(buf) not in host:
+                    host[id(buf)] = buf.tolist()
+                sp.attrs[name] = host[id(buf)][slot]
+            sp.counters = {}
 
     def walk(self):
         """Depth-first over every span in the forest, device times
@@ -293,6 +334,23 @@ def maybe_span(name: str, **attrs):
     if tr is not None:
         return tr.span(name, **attrs)
     return _range(name) if _profiler_enabled() else _NULL
+
+
+def span_counter(sp: "Span | None", name: str, device
+                 ) -> "torch.Tensor | None":
+    """An int64[1] zero on ``device`` that the trace reads into
+    ``sp.attrs[name]`` when it resolves ``sp``; None where ``sp`` is None
+    (spans off: ``step_span`` and ``maybe_span`` yield None then) or while
+    the device's current stream is being captured."""
+    tr = _CURRENT.get()
+    if sp is None or tr is None:
+        return None
+    dev = torch.device(device)
+    if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        return None
+    buf, slot = tr.counter(dev)
+    sp.counters[name] = (buf, slot)
+    return buf[slot:slot + 1]
 
 
 def step_span(name: str, **attrs):

@@ -1154,3 +1154,176 @@ def test_flash_attention_bf16_gradient(dev):
     for a, w in zip(grads[torch.bfloat16], grads[torch.float32]):
         assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all())
         assert float((a.float() - w).norm() / w.norm()) <= ATTN_GRAD_REL
+
+
+# --- the hub side-channel's kernels --------------------------------------------
+
+#: the hub cases: the kron tail (sorted), the same tail shuffled, two padded
+#: batch lanes, the forced side-channel of a hubless graph (T = 8, all
+#: invalid, n_hub = 0) and one hub of degree > 100,000
+HUB_CASES = ("kron", "unsorted", "padded", "forced", "big_hub")
+_HUB: dict = {}
+
+
+def _hub_operands(case):
+    """(tail_src, tail_dst, tail_valid, hub_slot, priority, n_hub) on the
+    CPU."""
+    from repro_torch.core import ipgc
+    if case in _HUB:
+        return _HUB[case]
+    kron = dict(scale=1, layout="ell-tail", ell_cap=128)
+    if case in ("kron", "unsorted"):
+        ig = ipgc.prepare(repro_torch.get_dataset(
+            "kron_g500-logn21_s", **kron), device="cpu")
+    elif case == "padded":
+        parts = [ipgc.prepare(repro_torch.get_dataset(
+            "kron_g500-logn21_s", scale=0.25, layout=lay), device="cpu")
+            for lay in ("ell-tail", "hub-split")]
+        ig = ipgc.padded_graph(
+            max(p.n_nodes for p in parts) + 3,
+            max(p.ell_width for p in parts),
+            max(p.tail_src.shape[0] for p in parts) + 5,
+            max(p.n_hub for p in parts) + 1, lanes=2, device="cpu")
+        for lane, p in enumerate(parts):
+            ipgc.pad_into(p, ig, lane, 2)
+    elif case == "forced":
+        ig = ipgc.prepare(repro_torch.get_dataset(
+            "europe_osm_s", scale=0.02, layout="pure-ell"), device="cpu")
+    if case != "big_hub":
+        ops_ = (ig.tail_src, ig.tail_dst, ig.tail_valid, ig.hub_slot,
+                ig.priority, ig.n_hub)
+        if case == "unsorted":
+            perm = torch.randperm(ig.tail_src.shape[0],
+                                  generator=torch.Generator().manual_seed(1))
+            ops_ = tuple(t[perm] for t in ops_[:3]) + ops_[3:]
+    else:
+        n, hub, deg = 200_003, 7, 150_001
+        gen = torch.Generator().manual_seed(2)
+        dst = torch.randperm(n - 1, generator=gen)[:deg]
+        dst = torch.sort(dst + (dst >= hub).long()).values.int()
+        pad = 6
+        src = torch.full((deg + pad,), hub, dtype=torch.int32)
+        src[deg:] = n - 1
+        dst = torch.cat([dst, torch.full((pad,), n, dtype=torch.int32)])
+        valid = torch.arange(deg + pad) < deg
+        hub_slot = torch.ones(n, dtype=torch.int32)
+        hub_slot[hub] = 0
+        prio = torch.randint(0, 1 << 20, (n + 1,), generator=gen,
+                             dtype=torch.int32)
+        prio[n] = -1
+        ops_ = (src, dst, valid, hub_slot, prio, 1)
+    _HUB[case] = ops_
+    return ops_
+
+
+def _hub_state(n, window, gate, seed):
+    gen = torch.Generator().manual_seed(seed)
+    colors = torch.randint(-1, 3 * window, (n + 1,), generator=gen,
+                           dtype=torch.int32)
+    colors[n] = -2
+    base = torch.randint(0, 2 * window, (n,), generator=gen,
+                         dtype=torch.int32)
+    if gate == "on":
+        on = torch.ones(n, dtype=torch.bool)
+    elif gate == "off":
+        on = torch.zeros(n, dtype=torch.bool)
+    else:
+        on = torch.rand(n, generator=gen) < 0.5
+    return colors, base, on
+
+
+@pytest.mark.parametrize("gate", ["on", "off", "random"])
+@pytest.mark.parametrize("window", [1, 256])
+@pytest.mark.parametrize("case", HUB_CASES)
+def test_hub_kernels_match_plain(dev, case, window, gate):
+    """Both hub kernels equal their plain twins byte for byte, and count
+    the entries their gate lets through as the twins do; one launch each
+    (none for an empty tail)."""
+    from repro_torch.kernels.hub import hub_forbidden_plain, hub_lose_plain
+    src, dst, valid, hub_slot, prio, n_hub = _hub_operands(case)
+    n = hub_slot.shape[0]
+    colors, base, on = _hub_state(n, window, gate, seed=window)
+    tail = (src, dst, valid, hub_slot)
+    card = [t.to(dev) for t in (*tail, colors, base, on, prio)]
+    seen = [torch.zeros(1, dtype=torch.int64, device=d)
+            for d in (dev, "cpu")]
+    before = _build.KERNEL_LAUNCHES["hub"]
+    got = ops.hub_forbidden(*card[:7], window, n_hub, seen[0])
+    want = hub_forbidden_plain(*tail, colors, base, on, window, n_hub,
+                               seen[1])
+    assert torch.equal(got.cpu(), want)
+    assert int(seen[0]) == int(seen[1])
+    seen[0].zero_()
+    seen[1].zero_()
+    got = ops.hub_lose(*card[:5], card[7], card[6], n_hub, seen[0])
+    want = hub_lose_plain(*tail, colors, prio, on, n_hub, seen[1])
+    assert torch.equal(got.cpu(), want)
+    assert int(seen[0]) == int(seen[1])
+    assert _build.KERNEL_LAUNCHES["hub"] == before + 2
+    if gate == "on" and case != "forced":
+        assert bool(ops.hub_forbidden(*card[:7], window, n_hub).any())
+
+
+def test_hub_kernels_replay_in_a_cuda_graph(dev):
+    """Both kernels captured (no counter) and replayed on new colors and
+    gates equal their plain twins."""
+    from repro_torch.kernels.hub import hub_forbidden_plain, hub_lose_plain
+    src, dst, valid, hub_slot, prio, n_hub = _hub_operands("kron")
+    n, window = hub_slot.shape[0], 32
+    tail = (src, dst, valid, hub_slot)
+    card = [t.to(dev) for t in tail]
+    colors, base, on = (t.to(dev) for t in _hub_state(n, window, "on", 0))
+    prio_d = prio.to(dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.hub_forbidden(*card, colors, base, on, window, n_hub)
+        ops.hub_lose(*card, colors, prio_d, on, n_hub)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        forb = ops.hub_forbidden(*card, colors, base, on, window, n_hub)
+        lose = ops.hub_lose(*card, colors, prio_d, on, n_hub)
+    for seed, gate in ((3, "random"), (4, "on"), (5, "off")):
+        c, b, g = _hub_state(n, window, gate, seed)
+        colors.copy_(c)
+        base.copy_(b)
+        on.copy_(g)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(forb.cpu(), hub_forbidden_plain(
+            *tail, c, b, g, window, n_hub))
+        assert torch.equal(lose.cpu(), hub_lose_plain(
+            *tail, c, prio, g, n_hub))
+
+
+def test_hub_wrappers_reject_bad_operands(dev):
+    src = torch.zeros(8, dtype=torch.int32, device=dev)
+    dst = torch.full((8,), 4, dtype=torch.int32, device=dev)
+    valid = torch.zeros(8, dtype=torch.bool, device=dev)
+    slot = torch.zeros(4, dtype=torch.int32, device=dev)
+    colors = torch.zeros(5, dtype=torch.int32, device=dev)
+    base = torch.zeros(4, dtype=torch.int32, device=dev)
+    gate = torch.ones(4, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="windows of 1..256"):
+        ops.hub_forbidden(src, dst, valid, slot, colors, base, gate, 512, 0)
+    with pytest.raises(TypeError, match="int32"):
+        ops.hub_forbidden(src.long(), dst, valid, slot, colors, base, gate,
+                          32, 0)
+    with pytest.raises(ValueError, match="shape"):
+        ops.hub_lose(src, dst, valid, slot, colors, colors, gate[:3], 0)
+    with pytest.raises(ValueError, match="on cuda"):
+        ops.hub_lose(src, dst, valid, slot.cpu(), colors, colors, gate, 0)
+    with pytest.raises(TypeError, match="int64"):
+        ops.hub_lose(src, dst, valid, slot, colors, colors, gate, 0,
+                     torch.zeros(1, dtype=torch.int32, device=dev))
+    # the kernels' 4-entry loads need whole (aligned) tail arrays
+    wide = torch.zeros(9, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="tail_src: expected a 16-byte"):
+        ops.hub_forbidden(wide[1:], dst, valid, slot, colors, base, gate, 32,
+                          0)
+    with pytest.raises(ValueError, match="tail_dst: expected a 16-byte"):
+        ops.hub_lose(src, wide[1:], valid, slot, colors, colors, gate, 0)
+    flags = torch.zeros(9, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="tail_valid: expected a 4-byte"):
+        ops.hub_lose(src, dst, flags[1:], slot, colors, colors, gate, 0)
